@@ -1,0 +1,662 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card and the
+CUDA toolkit::
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (``"phase": ...``):
+
+1. device  — the card as torch and ``nvidia-smi`` name it, power limit.
+2. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu``.
+3. kernels — each kernel against its plain PyTorch version on the card, on
+   seeded random tiles with the degenerate cases (zero-length extent, zero
+   relative velocity, tangent roots, disjoint intervals), at 256×256,
+   64×32 and 40×24 tiles, with ample and overflowing capacity.  Hit sets, ``count``
+   and ``pruned`` must be exact; intervals agree within ``rtol=1e-6,
+   atol=1e-5`` (same float32 operations in the same order, built with
+   ``-fmad=false``; the atomic append changes only the row order, so rows
+   are compared after a canonical sort).
+4. main    — ``TrajectoryDB.from_scenario("S1", scale=1.0)`` (GALAXY,
+   2,500 trajectories × 400 segments = 10^6 entry segments, 100 query
+   trajectories, d = 1) under the default policy, ``backend="kernel"``
+   against ``backend="torch"``, then the same query with
+   ``compaction="dense"`` (phase main_dense); then one warm execution of
+   the main path's plan under ``torch.profiler`` (device busy share,
+   device time by kernel).
+5. modes   — C1 and C3 at scale 0.1 (C3 as the README configures it),
+   pruning none/spatial/hierarchical × compaction fused/dense, all equal;
+   then S2 at scale 0.02 against ``backend="brute"``.
+6. timing  — each kernel's time on the largest dispatch of the path its
+   launches are counted on (CUDA graph of repeated wrapper calls, so host
+   overhead is excluded), its plain version's time, and its bound on this
+   card.
+
+Every ``backend="kernel"`` run sets the launch counters to 0 just before
+it and reads them just after (``kernel_path``): it fails unless the
+path's own kernel launched, no other kernel did, and the launches match
+the dispatches.
+
+Then the kernel table (``{"kernels": [...]}``), the ``nvidia-smi`` name
+and power-limit line, and last ``{"ok": true, "device": {...}}``.  Any
+failure raises: the script catches nothing and exits non-zero, also when
+CUDA is absent or the repository's ``src/`` is not beside it.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: Kernel-vs-plain tolerance on the card (see phase 3 above).
+K_RTOL, K_ATOL = 1e-6, 1e-5
+#: Backend-vs-backend tolerance on interval endpoints: the facade tests'
+#: (tests/test_torch_api.py), for float32 root solves that are
+#: ill-conditioned near tangency.  Index columns are always exact.
+B_RTOL, B_ATOL = 1e-4, 1e-3
+
+#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
+#: outside the tensor cores, and HBM3 bandwidth.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+#: float32 operations of the kernels' interval solve (csrc/distthresh.cu:
+#: ``interval_solve``): the temporal test for every pair, the rest of the
+#: quadratic path for a pair whose extents overlap.  Per-segment velocity
+#: and anchor terms are computed once per row / column and not counted.
+OPS_PER_PAIR = 3
+OPS_PER_OVERLAP = 45
+
+SOURCE = "src/repro_torch/kernels/csrc/distthresh.cu"
+REPLACES = {
+    "distthresh_compact": "src/repro/kernels/distthresh.py:640",
+    "distthresh_compact_live": "src/repro/kernels/distthresh.py:782",
+    "distthresh_dense": "src/repro/kernels/distthresh.py:242",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ----------------------------------------------------------------------
+# Inputs for the kernel checks.
+# ----------------------------------------------------------------------
+def degenerate_rows():
+    """Entry i meets query i (d = 2): head-on, parallel within, parallel
+    out of reach, zero-length extent, tangent, disjoint extents, linear
+    relative motion, zero relative velocity."""
+    e = np.array([[0, 0, 0, 10, 0, 0, 0, 10], [0, 0, 0, 10, 0, 0, 0, 10],
+                  [0, 0, 0, 10, 0, 0, 0, 10], [5, 0, 0, 5, 0, 0, 3, 3],
+                  [0, 0, 0, 10, 0, 0, 0, 10], [0, 0, 0, 1, 0, 0, 0, 1],
+                  [0, 0, 0, 10, 0, 0, 0, 10], [3, 1, 0, 3, 1, 0, 0, 10]],
+                 np.float32)
+    q = np.array([[10, 0, 0, 0, 0, 0, 0, 10], [0, 1, 0, 10, 1, 0, 0, 10],
+                  [0, 5, 0, 10, 5, 0, 0, 10], [0, 0, 0, 10, 0, 0, 0, 10],
+                  [10, 2, 0, 0, 2, 0, 0, 10], [0, 0, 0, 1, 0, 0, 5, 6],
+                  [0, 0, 0, 10, 3, 0, 0, 10], [3, 1, 1, 3, 1, 1, 0, 10]],
+                 np.float32)
+    return e, q
+
+
+def clustered(rng, c: int, q: int, groups: int):
+    """Entries in ``groups`` clusters along x (so tile boxes separate and
+    the early-out has work) and queries at two of them, the degenerate rows
+    first."""
+    def segs(n, xs):
+        s = np.zeros((n, 8), np.float32)
+        s[:, 0] = xs + rng.uniform(0, 4, n)
+        s[:, 1:3] = rng.uniform(0, 4, (n, 2))
+        s[:, 3:6] = s[:, 0:3] + rng.normal(0, 1.5, (n, 3))
+        s[:, 6] = rng.uniform(0, 10, n)
+        s[:, 7] = s[:, 6] + rng.uniform(0.2, 4, n)
+        return s
+    de, dq = degenerate_rows()
+    e = segs(c, np.sort(rng.integers(0, groups, c)) * 50.0)
+    qq = segs(q, rng.choice([0.0, 50.0 * (groups // 2)], q))
+    e[:len(de)] = de
+    qq[:len(dq)] = dq
+    return e, qq
+
+
+def rows(out, n):
+    """Canonically sorted (entry, query, t_enter, t_exit) of the first
+    ``n`` slots."""
+    e, q = out[0][:n].cpu().numpy(), out[1][:n].cpu().numpy()
+    o = np.lexsort((q, e))
+    return (e[o], q[o], out[2][:n].cpu().numpy()[o],
+            out[3][:n].cpu().numpy()[o])
+
+
+def compare_compact(k, p_full, capacity, label):
+    """Kernel output ``k`` against the plain version's ample-capacity
+    output ``p_full``; returns the interval error."""
+    count = int(k[4])
+    check(count == int(p_full[4]), f"{label}: count {count} != "
+          f"{int(p_full[4])}")
+    pr = rows(p_full, count)
+    if count <= capacity:
+        kr = rows(k, count)
+        for a, b in zip(kr[:2], pr[:2]):
+            check(np.array_equal(a, b), f"{label}: hit sets differ")
+        for a, b in zip(kr[2:], pr[2:]):
+            check(np.allclose(a, b, rtol=K_RTOL, atol=K_ATOL),
+                  f"{label}: intervals differ")
+        check((k[0][count:] == -1).all().item(), f"{label}: pad rows")
+        return max(float(np.abs(kr[2] - pr[2]).max(initial=0)),
+                   float(np.abs(kr[3] - pr[3]).max(initial=0)))
+    # Overflow: an arbitrary `capacity` of the hits, all distinct and real.
+    kr = rows(k, capacity)
+    kept = set(zip(kr[0].tolist(), kr[1].tolist()))
+    check(len(kept) == capacity, f"{label}: overflow rows not distinct")
+    check(kept <= set(zip(pr[0].tolist(), pr[1].tolist())),
+          f"{label}: overflow kept a non-hit")
+    return 0.0
+
+
+def kernel_checks(dev) -> dict:
+    from repro_torch.kernels import distthresh as dt
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(2026)
+    err = {name: 0.0 for name in REPLACES}
+    cases = 0
+    d = np.float32(2.0)
+    # 40×24: a block that is not a whole number of warps.
+    for cb, qb in ((256, 256), (64, 32), (40, 24)):
+        e_np, q_np = clustered(rng, 6 * cb + 37, 3 * qb + 5, groups=6)
+        e = torch.from_numpy(e_np).to(dev)
+        qt = torch.from_numpy(q_np).to(dev).T.contiguous()
+        kd = dt.distthresh_dense(e, qt, d, device=dev)
+        pd = dt.distthresh_dense_plain(e, qt, d)
+        check(torch.equal(kd[2], pd[2]), f"dense {cb}x{qb}: hit masks differ")
+        for a, b in zip(kd[:2], pd[:2]):
+            check(torch.allclose(a, b, rtol=K_RTOL, atol=K_ATOL),
+                  f"dense {cb}x{qb}: intervals differ")
+            err["distthresh_dense"] = max(err["distthresh_dense"],
+                                          float((a - b).abs().max()))
+        hits = int(pd[2].sum())
+        check(hits > 0, "no hits in the check tiles")
+        prep = ops._host_tile_prune(e_np, q_np, d, cb, qb)
+        live = ops._host_live_tiles(e_np, q_np, d, cb, qb)
+        check(prep is not None and live is not None,
+              "check tiles leave nothing to prune")
+        armed = dict(e_mbr=torch.from_numpy(prep[0]).to(dev),
+                     q_mbr=torch.from_numpy(prep[1]).to(dev),
+                     d_prune=prep[2])
+        lists = [torch.from_numpy(x).to(dev) for x in live[:3]]
+        kw = dict(cand_blk=cb, qry_blk=qb)
+        for capacity in (hits + 64, max(hits // 3, 1)):
+            for arm in ({}, armed):
+                label = f"compact {cb}x{qb} cap={capacity} armed={bool(arm)}"
+                k = dt.distthresh_compact(e, qt, d, capacity=capacity,
+                                          device=dev, **kw, **arm)
+                p = dt.distthresh_compact_plain(e, qt, d, capacity=hits + 64,
+                                                **kw, **arm)
+                check(int(k[5]) == int(p[5]), f"{label}: pruned differs")
+                check(bool(arm) == (int(p[5]) > 0), f"{label}: pruned count")
+                err["distthresh_compact"] = max(
+                    err["distthresh_compact"],
+                    compare_compact(k, p, capacity, label))
+                cases += 1
+            label = f"compact_live {cb}x{qb} cap={capacity}"
+            k = dt.distthresh_compact_live(e, qt, d, *lists,
+                                           capacity=capacity, device=dev,
+                                           **kw)
+            p = dt.distthresh_compact_live_plain(e, qt, d, *lists,
+                                                 capacity=hits + 64, **kw)
+            err["distthresh_compact_live"] = max(
+                err["distthresh_compact_live"],
+                compare_compact(k, p, capacity, label))
+            cases += 1
+    torch.cuda.synchronize()
+    return {"cases": cases, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
+# Whole-path comparisons.
+# ----------------------------------------------------------------------
+def same_rows(a, b, label) -> float:
+    check(len(a) == len(b), f"{label}: {len(a)} rows vs {len(b)}")
+    for f in ("entry_idx", "entry_traj", "entry_seg", "query_idx"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"{label}: {f} differs")
+    for f in ("t_enter", "t_exit"):
+        x, y = getattr(a, f), getattr(b, f)
+        check(np.isfinite(x).all(), f"{label}: non-finite {f}")
+        check(np.allclose(x, y, rtol=B_RTOL, atol=B_ATOL),
+              f"{label}: {f} differs")
+    if len(a) == 0:
+        return 0.0
+    return max(float(np.abs(a.t_enter - b.t_enter).max()),
+               float(np.abs(a.t_exit - b.t_exit).max()))
+
+
+def reset_launches():
+    from repro_torch.kernels import distthresh as dt
+    for k in dt.LAUNCHES:
+        dt.LAUNCHES[k] = 0
+
+
+def launches() -> dict:
+    from repro_torch.kernels import distthresh as dt
+    return dict(dt.LAUNCHES)
+
+
+def timed_query(db, backend, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = db.query(db.scenario_queries, db.scenario_d, backend=backend, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def allowed_kernels(pruning: str, compaction: str) -> set:
+    """The kernels a ``backend="kernel"`` path may launch: the dense path
+    only the dense kernel; hierarchical fusion the live-tile kernel, or the
+    unarmed compact kernel on a batch where no tile pair is dead; the other
+    fused paths only the compact kernel."""
+    if compaction == "dense":
+        return {"distthresh_dense"}
+    if pruning == "hierarchical":
+        return {"distthresh_compact_live", "distthresh_compact"}
+    return {"distthresh_compact"}
+
+
+def kernel_path(db, label: str, require: set, **kw):
+    """One ``backend="kernel"`` query with the launch counters set to 0
+    just before it and read just after.  Fails unless every kernel in
+    ``require`` launched, no kernel outside the path's own launched, and
+    (where every dispatch launches exactly one kernel) the launches equal
+    the dispatches, overflow re-dispatches included."""
+    pol = db.policy.with_(**kw)
+    allowed = allowed_kernels(pol.pruning, pol.compaction)
+    reset_launches()
+    res, wall = timed_query(db, "kernel", **kw)
+    counts = {k: n for k, n in launches().items() if n}
+    st = res.stats
+    check(set(counts) <= allowed, f"{label}: launched {counts}, only "
+          f"{sorted(allowed)} belong to this path")
+    for k in require:
+        check(counts.get(k, 0) > 0, f"{label}: {k} was not launched")
+    dispatched = sum(1 for b in st.batches if b.num_candidates) + \
+        st.total_retries
+    launched = sum(counts.values())
+    if len(allowed) == 1:
+        check(launched == dispatched,
+              f"{label}: {launched} launches for {dispatched} dispatches")
+    else:       # a batch whose tiles are all dead launches nothing
+        check(0 < launched <= dispatched,
+              f"{label}: {launched} launches for {dispatched} dispatches")
+    check(st.num_syncs <= 2 * st.num_groups,
+          f"{label}: {st.num_syncs} syncs for {st.num_groups} groups")
+    return res, wall, counts
+
+
+def main_path(dev, card):
+    """S1 at scale 1.0 under the default policy (the main path), then the
+    same query with ``compaction="dense"`` (the dense kernel's path), each
+    against ``backend="torch"``."""
+    from repro_torch.api import TrajectoryDB
+    t0 = time.perf_counter()
+    db = TrajectoryDB.from_scenario("S1", scale=1.0, device=dev)
+    setup_s = time.perf_counter() - t0
+    timed_query(db, "kernel")                       # warm, untimed
+    res, wall, counts = kernel_path(db, "S1 main path",
+                                    {"distthresh_compact"})
+    st = res.stats
+    ref_res, ref_wall = timed_query(db, "torch")
+    err = same_rows(res, ref_res, "S1 kernel vs torch")
+    check(len(res) > 0, "S1 produced no hits")
+    dense_res, dense_wall, dense_counts = kernel_path(
+        db, "S1 dense path", {"distthresh_dense"}, compaction="dense")
+    dense_err = same_rows(dense_res, ref_res, "S1 dense vs torch")
+    emit({"phase": "main", "scenario": "S1", "scale": 1.0,
+          "entry_segments": len(db), "query_segments":
+          len(db.scenario_queries), "d": db.scenario_d,
+          "setup_s": setup_s, "wall_s": wall, "plan_s": st.plan_seconds,
+          "execute_s": st.total_seconds,
+          "dispatch_s": st.dispatch_seconds, "sync_s": st.sync_seconds,
+          "torch_backend_wall_s": ref_wall, "hits": len(res),
+          "interactions": st.total_interactions,
+          "pruned_interactions": st.pruned_interactions,
+          "pruned_tiles": st.pruned_tiles, "total_tiles": st.total_tiles,
+          "batches": st.num_invocations, "groups": st.num_groups,
+          "syncs": st.num_syncs, "retries": st.total_retries,
+          "launches": counts, "interactions_per_s":
+          st.total_interactions / wall, "hits_per_s": len(res) / wall,
+          "max_abs_err_vs_torch": err, "card": card})
+    emit({"phase": "main_dense", "scenario": "S1", "scale": 1.0,
+          "compaction": "dense", "wall_s": dense_wall,
+          "execute_s": dense_res.stats.total_seconds,
+          "batches": dense_res.stats.num_invocations,
+          "retries": dense_res.stats.total_retries,
+          "syncs": dense_res.stats.num_syncs, "launches": dense_counts,
+          "max_abs_err_vs_torch": dense_err, "card": card})
+    return db, counts, dense_counts
+
+
+def profile_main(db, card):
+    """One warm execution of the main path's plan (planning excluded)
+    under ``torch.profiler``: the device's busy share of the execution's
+    wall time, and device time by kernel / copy name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, d = db.scenario_queries, db.scenario_d
+    plan = db.plan(q, d=d)
+    eng = db.engine("kernel")
+    eng.execute(q, d, plan)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, st = eng.execute(q, d, plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t_start, t_end = ev.time_range.start, ev.time_range.end
+        spans.append((t_start, t_end))
+        name = ev.name if len(ev.name) < 60 else ev.name[:57] + "..."
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + (t_end - t_start))
+    check(spans, "the profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):           # union of device intervals (us)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    emit({"phase": "profile", "execute_wall_s": wall,
+          "device_busy_s": busy * 1e-6, "device_busy_share":
+          busy * 1e-6 / wall, "dispatch_s": st.dispatch_seconds,
+          "sync_s": st.sync_seconds, "device_us_by_name":
+          {k: {"n": n, "us": us} for k, (n, us) in top}, "card": card})
+
+
+def mode_matrix(dev, card):
+    """C1 and C3 at scale 0.1, every pruning × compaction path against
+    ``backend="torch"``, each path's launches counted on its own; then S2
+    at scale 0.02 against ``backend="brute"``."""
+    from repro_torch.api import ExecutionPolicy, TrajectoryDB
+    dbs, summary, path_counts = {}, {}, {}
+    for name, pol in (("C1", ExecutionPolicy()),
+                      ("C3", ExecutionPolicy(num_bins=8, index_kboxes=4,
+                                             max_subranges=16))):
+        db = TrajectoryDB.from_scenario(name, scale=0.1, policy=pol,
+                                        device=dev)
+        dbs[name] = db
+        base, _ = timed_query(db, "torch")
+        check(len(base) > 0, f"{name} produced no hits")
+        walls, counts = {}, {}
+        for pruning in ("none", "spatial", "hierarchical"):
+            for compaction in ("fused", "dense"):
+                mode = f"{pruning}/{compaction}"
+                require = allowed_kernels(pruning, compaction)
+                if len(require) > 1:
+                    # C3 is the input whose boxes leave dead tiles.
+                    require = ({"distthresh_compact_live"} if name == "C3"
+                               else set())
+                res, walls[mode], counts[mode] = kernel_path(
+                    db, f"{name} {mode}", require, pruning=pruning,
+                    compaction=compaction)
+                same_rows(res, base, f"{name} {mode}")
+                path_counts[(name, mode)] = counts[mode]
+        summary[name] = {"hits": len(base), "wall_s": walls,
+                         "launches": counts}
+    db = TrajectoryDB.from_scenario("S2", scale=0.02, device=dev)
+    res, _, counts = kernel_path(db, "S2 main path", {"distthresh_compact"})
+    brute, _ = timed_query(db, "brute")
+    check(len(brute) > 0, "S2 produced no hits")
+    same_rows(res, brute, "S2 kernel vs brute")
+    summary["S2"] = {"hits": len(res), "launches": counts}
+    emit({"phase": "modes", "scenarios": summary, "card": card})
+    return dbs, path_counts
+
+
+# ----------------------------------------------------------------------
+# Kernel timing at the main path's shapes.
+# ----------------------------------------------------------------------
+def graph_ms(fn, iters: int = 20, reps: int = 3) -> float:
+    """Device milliseconds per ``fn()`` call: ``iters`` calls captured in
+    one CUDA graph, replayed ``reps`` times; the best replay counts."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    best = float("inf")
+    for _ in range(reps):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        t0.record()
+        g.replay()
+        t1.record()
+        t1.synchronize()
+        best = min(best, t0.elapsed_time(t1) / iters)
+    return best
+
+
+def event_ms(fn, iters: int = 5) -> float:
+    """Milliseconds per ``fn()`` call between two CUDA events (for the
+    plain versions, which synchronize and cannot be graph-captured)."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def pair_work(e, qt, tiles=None, cb=256, qb=256):
+    """(pairs, temporally overlapping pairs) the data needs evaluated;
+    ``tiles`` (ntc, ntq) bool restricts both to live tiles."""
+    lo = torch.maximum(e[:, 6][:, None], qt[6][None, :])
+    hi = torch.minimum(e[:, 7][:, None], qt[7][None, :])
+    mask = torch.ones_like(lo, dtype=torch.bool)
+    if tiles is not None:
+        mask = tiles.repeat_interleave(cb, 0)[:e.shape[0]].repeat_interleave(
+            qb, 1)[:, :qt.shape[1]]
+    return int(mask.sum()), int(((lo <= hi) & mask).sum())
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def batch_inputs(db, pruning, accept=None):
+    """The largest dispatch of ``db``'s plan under ``pruning`` (the first
+    by interactions that ``accept(entries, queries)`` takes): host slices
+    and resident device slices, as the engine passes them."""
+    pol = db.policy.with_(pruning=pruning)
+    queries = db._sorted(db.scenario_queries)[0].packed()
+    plan = db.plan(db.scenario_queries, pol, d=db.scenario_d)
+    eng = db.engine("kernel", pol)
+    perm = pruning == "hierarchical"
+    packed = eng._packed_perm if perm else eng._packed
+    packed_dev = eng._packed_perm_dev if perm else eng._packed_dev
+    for b in sorted(plan.batches, key=lambda x: -x.num_ints):
+        cf, cl = b.cand_first, b.cand_last + 1
+        q_np = queries[b.q_first:b.q_last + 1]
+        if b.num_candidates and (accept is None or accept(packed[cf:cl],
+                                                          q_np)):
+            qt = torch.from_numpy(q_np).to(db.device).T.contiguous()
+            return packed[cf:cl], q_np, packed_dev[cf:cl], qt
+    raise AssertionError(f"no dispatch of the {pruning} plan qualifies")
+
+
+def kernel_timing(dev, s1, c3, counts, card):
+    """Each kernel timed on the largest dispatch of the path its launches
+    were counted on: ``counts[name] = (label, launches)``."""
+    from repro_torch.kernels import distthresh as dt
+    from repro_torch.kernels import ops
+    table = []
+    d = np.float32(s1.scenario_d)
+    e_np, q_np, e, qt = batch_inputs(s1, "spatial")
+    c, q = e.shape[0], qt.shape[1]
+
+    def row(name, shape, err, ms, plain_ms, b, **extra):
+        label, n = counts[name]
+        return {"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[name], "launches": n,
+                "launches_counted_on": label, "shape": shape, **extra,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+    # distthresh_compact, on the main path's largest dispatch.
+    prep = ops._host_tile_prune(e_np, q_np, d, 256, 256)
+    arm = {} if prep is None else dict(
+        e_mbr=torch.from_numpy(prep[0]).to(dev),
+        q_mbr=torch.from_numpy(prep[1]).to(dev), d_prune=prep[2])
+    plain = dt.distthresh_compact_plain(e, qt, d, capacity=1 << 20, **arm)
+    hits = int(plain[4])
+    cap = max(hits, 1)
+    k = dt.distthresh_compact(e, qt, d, capacity=cap, device=dev, **arm)
+    err = compare_compact(k, plain, cap, "timing compact")
+    tiles = None
+    if prep is not None:
+        tiles = dt._tile_mbr_live(arm["e_mbr"], arm["q_mbr"], prep[2])
+    pairs, overlap = pair_work(e, qt, tiles)
+    table.append(row(
+        "distthresh_compact", [c, q], err,
+        graph_ms(lambda: dt.distthresh_compact(
+            e, qt, d, capacity=cap, device=dev, **arm)),
+        event_ms(lambda: dt.distthresh_compact_plain(
+            e, qt, d, capacity=cap, **arm)),
+        bound(32 * (c + q) + 16 * hits + 8,
+              OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
+        armed=bool(arm)))
+
+    # distthresh_dense, on the same dispatch: S1's dense path plans the
+    # same batches.
+    kd = dt.distthresh_dense(e, qt, d, device=dev)
+    pd = dt.distthresh_dense_plain(e, qt, d)
+    check(torch.equal(kd[2], pd[2]), "timing dense: hit masks differ")
+    err = max(float((kd[0] - pd[0]).abs().max()),
+              float((kd[1] - pd[1]).abs().max()))
+    pairs, overlap = pair_work(e, qt)
+    table.append(row(
+        "distthresh_dense", [c, q], err,
+        graph_ms(lambda: dt.distthresh_dense(e, qt, d, device=dev)),
+        event_ms(lambda: dt.distthresh_dense_plain(e, qt, d)),
+        bound(32 * (c + q) + 9 * c * q,
+              OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap)))
+
+    # distthresh_compact_live, on the largest C3 hierarchical dispatch that
+    # launches it (one with dead tiles and at least one live tile).
+    d3 = np.float32(c3.scenario_d)
+
+    def has_live(e_np, q_np):
+        live = ops._host_live_tiles(e_np, q_np, d3, 256, 256)
+        return live is not None and int(live[2][0]) > 0
+    e_np, q_np, e, qt = batch_inputs(c3, "hierarchical", has_live)
+    c, q = e.shape[0], qt.shape[1]
+    live = ops._host_live_tiles(e_np, q_np, d3, 256, 256)
+    lists = [torch.from_numpy(x).to(dev) for x in live[:3]]
+    plain = dt.distthresh_compact_live_plain(e, qt, d3, *lists,
+                                             capacity=1 << 20)
+    hits = int(plain[4])
+    cap = max(hits, 1)
+    k = dt.distthresh_compact_live(e, qt, d3, *lists, capacity=cap,
+                                   device=dev)
+    err = compare_compact(k, plain, cap, "timing compact_live")
+    n_live = int(live[2][0])
+    ntc, ntq = -(-c // 256), -(-q // 256)
+    tiles = torch.zeros((ntc, ntq), dtype=torch.bool, device=dev)
+    tiles[lists[0][:n_live].long(), lists[1][:n_live].long()] = True
+    pairs, overlap = pair_work(e, qt, tiles)
+    table.append(row(
+        "distthresh_compact_live", [c, q], err,
+        graph_ms(lambda: dt.distthresh_compact_live(
+            e, qt, d3, *lists, capacity=cap, device=dev)),
+        event_ms(lambda: dt.distthresh_compact_live_plain(
+            e, qt, d3, *lists, capacity=cap)),
+        bound(32 * (c + q) + 8 * len(live[0]) + 16 * hits + 4,
+              OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
+        live_tiles=n_live))
+    emit({"phase": "timing", "card": card,
+          "note": "ms: device time per wrapper call (its output fills "
+                  "included), CUDA graph; plain_ms: CUDA events; "
+                  "library_ms: no single PyTorch call computes this join"})
+    return table
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi()
+    emit({"phase": "device", "torch_device": torch.cuda.get_device_name(0),
+          "nvidia_smi": card, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    _build.build()
+    _build.load()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": _build.build_seconds,
+          "built": list(REPLACES)})
+
+    t0 = time.perf_counter()
+    checks = kernel_checks(dev)
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
+          "rtol": K_RTOL, "atol": K_ATOL, **checks})
+
+    s1, main_counts, dense_counts = main_path(dev, card)
+    profile_main(s1, card)
+    dbs, path_counts = mode_matrix(dev, card)
+    counts = {
+        "distthresh_compact": ("S1 scale 1.0, default policy (main path)",
+                               main_counts["distthresh_compact"]),
+        "distthresh_dense": ("S1 scale 1.0, compaction='dense'",
+                             dense_counts["distthresh_dense"]),
+        "distthresh_compact_live": (
+            "C3 scale 0.1, pruning='hierarchical', compaction='fused'",
+            path_counts[("C3", "hierarchical/fused")][
+                "distthresh_compact_live"])}
+    table = kernel_timing(dev, s1, dbs["C3"], counts, card)
+    torch.cuda.synchronize()
+
+    emit({"kernels": table})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

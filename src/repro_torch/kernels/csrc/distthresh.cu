@@ -1,0 +1,360 @@
+// Distance-threshold kernels for Hopper (sm_90a), with a plain C interface.
+//
+// Three kernels share one interval solve, `interval_solve`, the operation
+// sequence of `_interval_math` in repro/kernels/distthresh.py (and of
+// repro_torch/kernels/ref.py::interval_math).  Built with -fmad=false and
+// IEEE division and square root, so no product is fused into an add and
+// every rounding falls where the reference's does: the hit sets equal the
+// reference's bit for bit, and the MBR prune slack
+// (repro_torch/core/index.py::prune_limit) stays valid.
+//
+// distthresh_compact_kernel  replaces distthresh_compact_pallas
+//   (append="chunk", repro/kernels/distthresh.py:536, pallas_call at :640).
+//   One block of cand_blk threads per (entry tile, query tile); each thread
+//   owns one entry row, the tile's queries are staged in shared memory.
+//   Pass 1 counts each row's hits, a block exclusive scan (warp shuffles +
+//   shared memory) gives row offsets, one thread takes the tile's base with
+//   atomicAdd on `count` (the paper's §5 atomic_inc), and pass 2 recomputes
+//   the hits and writes them at base + row offset.  Rows stay row-major
+//   inside a tile; the order of tiles changes from run to run.  With the
+//   early-out armed, thread 0 runs the tile's 3-axis box test first and a
+//   dead tile only bumps `pruned`.
+//   Bound: float32 arithmetic on the non-tensor cores, ~70 FLOP per
+//   interaction, against 32 bytes per entry and query read once.
+//   Left on the table: pass 2 repeats pass 1's arithmetic for rows with
+//   hits; a batch of ~10^4 candidates x 64 queries launches only ~40
+//   blocks on 132 SMs; `count` and `pruned` are single global atomics.
+//
+// distthresh_compact_live_kernel  replaces distthresh_compact_live_pallas
+//   (repro/kernels/distthresh.py:697, pallas_call at :782).  The same tile
+//   body with blockIdx.x as the slot of a live-tile list read from device
+//   memory; slots >= n_live return at once.  Same bound, same gaps.
+//
+// distthresh_dense_kernel  replaces distthresh_pallas
+//   (repro/kernels/distthresh.py:214, pallas_call at :242).  One thread per
+//   (entry, query) pair in 32x8 blocks; writes t_enter, t_exit and int8 hit
+//   (intervals 0 where there is no hit).  Bound: the 9 bytes per pair it
+//   writes, ~2.7 us per 10^6 pairs at 3.35 TB/s.  Left on the table: each
+//   thread reloads its entry and query (L1 serves the repeats).
+//
+// Every launch function returns cudaGetLastError() of its launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kAEps = 1e-12f;
+constexpr float kBEps = 1e-12f;
+
+__device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
+
+// Per-segment quantities that depend on one side only: velocity and the
+// absolute-time anchor p0 - v*ts (the same expressions as the reference,
+// evaluated once per row / column instead of once per pair).
+struct Side {
+  float vx, vy, vz;  // velocity (0 for a zero-length temporal extent)
+  float ax, ay, az;  // anchor x0 - vx*ts
+  float ts, te;
+};
+
+__device__ __forceinline__ Side make_side(float x0, float y0, float z0,
+                                          float x1, float y1, float z1,
+                                          float ts, float te) {
+  Side s;
+  float dt = te - ts;
+  float safe = dt > 0.0f ? dt : 1.0f;
+  float live = dt > 0.0f ? 1.0f : 0.0f;
+  s.vx = (x1 - x0) / safe * live;
+  s.vy = (y1 - y0) / safe * live;
+  s.vz = (z1 - z0) / safe * live;
+  s.ax = x0 - s.vx * ts;
+  s.ay = y0 - s.vy * ts;
+  s.az = z0 - s.vz * ts;
+  s.ts = ts;
+  s.te = te;
+  return s;
+}
+
+// The interval solve of one (entry, query) pair; `dd` is d*d in float32.
+// Returns hit; writes the interval where it hits.
+__device__ __forceinline__ bool interval_solve(const Side& e, const Side& q,
+                                               float dd, float* t_enter,
+                                               float* t_exit) {
+  float lo = fmaxf(e.ts, q.ts);
+  float hi = fminf(e.te, q.te);
+  if (!(lo <= hi)) return false;
+  float dvx = e.vx - q.vx;
+  float dvy = e.vy - q.vy;
+  float dvz = e.vz - q.vz;
+  float drx = e.ax - q.ax;
+  float dry = e.ay - q.ay;
+  float drz = e.az - q.az;
+  float a = dvx * dvx + dvy * dvy + dvz * dvz;
+  float b = 2.0f * (drx * dvx + dry * dvy + drz * dvz);
+  float c = drx * drx + dry * dry + drz * drz - dd;
+  float rlo, rhi;
+  if (a > kAEps) {
+    float disc = b * b - 4.0f * a * c;
+    if (!(disc >= 0.0f)) return false;
+    float sq = sqrtf(fmaxf(disc, 0.0f));
+    rlo = (-b - sq) / (2.0f * a);
+    rhi = (-b + sq) / (2.0f * a);
+  } else if (fabsf(b) > kBEps) {
+    float root = -c / b;
+    rlo = b > 0.0f ? -f_inf() : root;
+    rhi = b > 0.0f ? root : f_inf();
+  } else {
+    if (!(c <= 0.0f)) return false;
+    rlo = -f_inf();
+    rhi = f_inf();
+  }
+  float te = fmaxf(rlo, lo);
+  float tx = fminf(rhi, hi);
+  if (!(te <= tx)) return false;
+  *t_enter = te;
+  *t_exit = tx;
+  return true;
+}
+
+__device__ __forceinline__ Side load_entry(const float* __restrict__ entries,
+                                           int row) {
+  const float* p = entries + (size_t)row * 8;
+  return make_side(p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7]);
+}
+
+// Block exclusive scan of one int per thread (blockDim.x a multiple of 32,
+// at most 1024).  Every thread must call it.  Returns the exclusive prefix
+// and writes the block total to *total.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    int w = lane < nwarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  *total = warp_sums[nwarps - 1];
+  return (wid > 0 ? warp_sums[wid - 1] : 0) + x - v;
+}
+
+// One (entry tile ti, query tile tj) of the fused compaction.
+__device__ __forceinline__ void compact_tile(
+    int ti, int tj, const float* __restrict__ entries, int C,
+    const float* __restrict__ qT, long long ldq, int Q, float d,
+    int cand_blk, int qry_blk, int valid_c, int valid_q, int capacity,
+    int* __restrict__ e_idx, int* __restrict__ q_idx,
+    float* __restrict__ t_enter, float* __restrict__ t_exit,
+    int* __restrict__ count) {
+  extern __shared__ float smem[];  // 8 * qry_blk: derived query columns
+  __shared__ int s_base;
+  const int q0 = tj * qry_blk;
+  const int ncols = max(0, min(qry_blk, min(Q, valid_q) - q0));
+
+  // Stage the tile's queries as derived columns (velocity, anchor, ts, te).
+  for (int k = threadIdx.x; k < ncols; k += blockDim.x) {
+    const float* p = qT + q0 + k;
+    Side s = make_side(p[0], p[ldq], p[2 * ldq], p[3 * ldq], p[4 * ldq],
+                       p[5 * ldq], p[6 * ldq], p[7 * ldq]);
+    smem[0 * qry_blk + k] = s.vx;
+    smem[1 * qry_blk + k] = s.vy;
+    smem[2 * qry_blk + k] = s.vz;
+    smem[3 * qry_blk + k] = s.ax;
+    smem[4 * qry_blk + k] = s.ay;
+    smem[5 * qry_blk + k] = s.az;
+    smem[6 * qry_blk + k] = s.ts;
+    smem[7 * qry_blk + k] = s.te;
+  }
+  __syncthreads();
+
+  const int local = threadIdx.x;
+  const int row = ti * cand_blk + local;
+  const bool row_ok = local < cand_blk && row < min(C, valid_c);
+  const float dd = d * d;
+  Side e;
+  if (row_ok) e = load_entry(entries, row);
+
+  // Pass 1: this row's hit count.
+  int n = 0;
+  if (row_ok) {
+    for (int k = 0; k < ncols; ++k) {
+      Side q = {smem[k], smem[qry_blk + k], smem[2 * qry_blk + k],
+                smem[3 * qry_blk + k], smem[4 * qry_blk + k],
+                smem[5 * qry_blk + k], smem[6 * qry_blk + k],
+                smem[7 * qry_blk + k]};
+      float te, tx;
+      n += interval_solve(e, q, dd, &te, &tx) ? 1 : 0;
+    }
+  }
+  int tile_hits;
+  const int offset = block_exclusive_scan(n, &tile_hits);
+  if (tile_hits == 0) return;
+  if (threadIdx.x == 0) s_base = atomicAdd(count, tile_hits);
+  __syncthreads();
+
+  // Pass 2: recompute this row's hits and write those that fit.
+  int dst = s_base + offset;
+  if (n == 0 || dst >= capacity) return;
+  for (int k = 0; k < ncols && dst < capacity; ++k) {
+    Side q = {smem[k], smem[qry_blk + k], smem[2 * qry_blk + k],
+              smem[3 * qry_blk + k], smem[4 * qry_blk + k],
+              smem[5 * qry_blk + k], smem[6 * qry_blk + k],
+              smem[7 * qry_blk + k]};
+    float te, tx;
+    if (interval_solve(e, q, dd, &te, &tx)) {
+      e_idx[dst] = row;
+      q_idx[dst] = q0 + k;
+      t_enter[dst] = te;
+      t_exit[dst] = tx;
+      ++dst;
+    }
+  }
+}
+
+// The tile-level early-out, same float32 ops as _tile_mbr_live.
+__device__ __forceinline__ bool tile_mbr_live(const float* em, const float* qm,
+                                              float dp) {
+  float gap2 = 0.0f;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    float g = fmaxf(fmaxf(qm[ax] - em[3 + ax], em[ax] - qm[3 + ax]), 0.0f);
+    gap2 = gap2 + g * g;
+  }
+  return gap2 <= dp * dp;
+}
+
+template <bool kPrune>
+__global__ void distthresh_compact_kernel(
+    const float* __restrict__ entries, int C, const float* __restrict__ qT,
+    long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
+    int valid_q, int capacity, int ntq, const float* __restrict__ e_mbr,
+    const float* __restrict__ q_mbr, float d_prune, int* __restrict__ e_idx,
+    int* __restrict__ q_idx, float* __restrict__ t_enter,
+    float* __restrict__ t_exit, int* __restrict__ count,
+    int* __restrict__ pruned) {
+  const int ti = blockIdx.x / ntq;
+  const int tj = blockIdx.x % ntq;
+  if (kPrune) {
+    __shared__ int s_live;
+    if (threadIdx.x == 0) {
+      s_live = tile_mbr_live(e_mbr + 8 * ti, q_mbr + 8 * tj, d_prune);
+      if (!s_live) atomicAdd(pruned, 1);
+    }
+    __syncthreads();
+    if (!s_live) return;
+  }
+  compact_tile(ti, tj, entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c,
+               valid_q, capacity, e_idx, q_idx, t_enter, t_exit, count);
+}
+
+__global__ void distthresh_compact_live_kernel(
+    const float* __restrict__ entries, int C, const float* __restrict__ qT,
+    long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
+    int valid_q, int capacity, const int* __restrict__ tile_i,
+    const int* __restrict__ tile_j, const int* __restrict__ n_live,
+    int* __restrict__ e_idx, int* __restrict__ q_idx,
+    float* __restrict__ t_enter, float* __restrict__ t_exit,
+    int* __restrict__ count) {
+  const int slot = blockIdx.x;
+  if (slot >= *n_live) return;
+  compact_tile(tile_i[slot], tile_j[slot], entries, C, qT, ldq, Q, d,
+               cand_blk, qry_blk, valid_c, valid_q, capacity, e_idx, q_idx,
+               t_enter, t_exit, count);
+}
+
+__global__ void distthresh_dense_kernel(const float* __restrict__ entries,
+                                        int C, const float* __restrict__ qT,
+                                        long long ldq, int Q, float d,
+                                        float* __restrict__ t_enter,
+                                        float* __restrict__ t_exit,
+                                        int8_t* __restrict__ hit) {
+  const int col = blockIdx.y * blockDim.x + threadIdx.x;
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  if (row >= C || col >= Q) return;
+  const float* p = qT + col;
+  Side q = make_side(p[0], p[ldq], p[2 * ldq], p[3 * ldq], p[4 * ldq],
+                     p[5 * ldq], p[6 * ldq], p[7 * ldq]);
+  Side e = load_entry(entries, row);
+  float te = 0.0f, tx = 0.0f;
+  bool h = interval_solve(e, q, d * d, &te, &tx);
+  const size_t o = (size_t)row * Q + col;
+  t_enter[o] = h ? te : 0.0f;
+  t_exit[o] = h ? tx : 0.0f;
+  hit[o] = h ? 1 : 0;
+}
+
+int round_up_warp(int n) { return (n + 31) / 32 * 32; }
+
+}  // namespace
+
+extern "C" {
+
+int distthresh_dense_launch(const float* entries, int C, const float* qT,
+                            long long ldq, int Q, float d, float* t_enter,
+                            float* t_exit, int8_t* hit, void* stream) {
+  dim3 block(32, 8);
+  dim3 grid((C + 7) / 8, (Q + 31) / 32);  // rows on x: y stops at 65535
+  distthresh_dense_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      entries, C, qT, ldq, Q, d, t_enter, t_exit, hit);
+  return (int)cudaGetLastError();
+}
+
+int distthresh_compact_launch(const float* entries, int C, const float* qT,
+                              long long ldq, int Q, float d, int cand_blk,
+                              int qry_blk, int valid_c, int valid_q,
+                              int capacity, const float* e_mbr,
+                              const float* q_mbr, float d_prune, int* e_idx,
+                              int* q_idx, float* t_enter, float* t_exit,
+                              int* count, int* pruned, void* stream) {
+  const int ntc = (C + cand_blk - 1) / cand_blk;
+  const int ntq = (Q + qry_blk - 1) / qry_blk;
+  const size_t smem = sizeof(float) * 8 * (size_t)qry_blk;
+  const int threads = round_up_warp(cand_blk);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (e_mbr != nullptr) {
+    distthresh_compact_kernel<true><<<ntc * ntq, threads, smem, s>>>(
+        entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
+        capacity, ntq, e_mbr, q_mbr, d_prune, e_idx, q_idx, t_enter, t_exit,
+        count, pruned);
+  } else {
+    distthresh_compact_kernel<false><<<ntc * ntq, threads, smem, s>>>(
+        entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
+        capacity, ntq, nullptr, nullptr, 0.0f, e_idx, q_idx, t_enter, t_exit,
+        count, pruned);
+  }
+  return (int)cudaGetLastError();
+}
+
+int distthresh_compact_live_launch(const float* entries, int C,
+                                   const float* qT, long long ldq, int Q,
+                                   float d, int cand_blk, int qry_blk,
+                                   int valid_c, int valid_q, int capacity,
+                                   const int* tile_i, const int* tile_j,
+                                   const int* n_live, int n_slots, int* e_idx,
+                                   int* q_idx, float* t_enter, float* t_exit,
+                                   int* count, void* stream) {
+  const size_t smem = sizeof(float) * 8 * (size_t)qry_blk;
+  const int threads = round_up_warp(cand_blk);
+  distthresh_compact_live_kernel<<<n_slots, threads, smem,
+                                   (cudaStream_t)stream>>>(
+      entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
+      capacity, tile_i, tile_j, n_live, e_idx, q_idx, t_enter, t_exit, count);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

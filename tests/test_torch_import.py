@@ -1,0 +1,123 @@
+"""The port stands alone: ``repro_torch`` loads neither ``jax`` nor the
+reference package, and no source of it (nor ``chip_smoke.py``) imports
+either.  Also pins the device rule: a CUDA request without CUDA raises."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py"))
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _module_name(path: pathlib.Path) -> str:
+    rel = path.relative_to(ROOT / "src").with_suffix("")
+    parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+    return ".".join(parts)
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_port_has_modules():
+    names = {_module_name(p) for p in PORT_FILES}
+    assert {"repro_torch.api", "repro_torch.kernels.distthresh",
+            "repro_torch.kernels.ops", "repro_torch.core.engine",
+            "repro_torch.core.executor", "repro_torch.state"} <= names
+
+
+def test_import_loads_neither_jax_nor_repro():
+    mods = [_module_name(p) for p in PORT_FILES]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_neither_jax_nor_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and _forbidden(str(node.args[0].value))):
+            bad.append(node.args[0].value)
+    assert bad == [], f"{path} imports {bad}"
+
+
+# ----------------------------------------------------------------------
+# Entry points run on the card unless the caller asks for the CPU.
+# ----------------------------------------------------------------------
+def _entry_points():
+    from repro_torch import resolve_device
+    from repro_torch.api import TrajectoryDB
+    from repro_torch.core.engine import DistanceThresholdEngine, brute_force
+    from repro_torch.core.segments import SegmentArray
+    from repro_torch.kernels import distthresh as dt
+    from repro_torch.kernels import ops
+
+    seg = SegmentArray(*(np.zeros(2, np.float32),) * 6,
+                       np.zeros(2, np.float32), np.ones(2, np.float32),
+                       np.arange(2), np.zeros(2))
+    packed = seg.packed()
+    e = torch.from_numpy(packed)
+    return {
+        "resolve_device": lambda: resolve_device(),
+        "TrajectoryDB": lambda: TrajectoryDB.from_segments(seg),
+        "DistanceThresholdEngine": lambda: DistanceThresholdEngine(seg),
+        "brute_force": lambda: brute_force(seg, seg, 1.0),
+        "query_block": lambda: ops.query_block(packed, packed, 1.0,
+                                               capacity=8),
+        "interaction_tiles": lambda: ops.interaction_tiles(packed, packed,
+                                                           1.0),
+        "distthresh_dense": lambda: dt.distthresh_dense(e, e.T, 1.0),
+        "distthresh_compact": lambda: dt.distthresh_compact(
+            e, e.T, 1.0, capacity=8),
+        "distthresh_compact_live": lambda: dt.distthresh_compact_live(
+            e, e.T, 1.0, torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32), capacity=8),
+    }
+
+
+@pytest.mark.parametrize("name", list(_entry_points()))
+def test_cuda_request_without_cuda_raises(name, monkeypatch):
+    """Default ``device="cuda"`` on a machine without CUDA raises; nothing
+    carries on silently on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[name]()
+
+
+def test_wrapper_refuses_tensor_on_other_device():
+    """A wrapper runs its plain version only when asked for the CPU; it
+    never picks a device the caller did not name."""
+    from repro_torch.kernels import distthresh as dt
+    e = torch.zeros((4, 8), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="but device=cpu"):
+        dt.distthresh_dense(e, e.T, 1.0, device="cpu")
