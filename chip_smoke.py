@@ -13,7 +13,8 @@ Phases, each printing one JSON line (``"phase": ...``):
 3. kernels — each kernel against its plain PyTorch version on the card, on
    seeded random tiles with the degenerate cases (zero-length extent, zero
    relative velocity, tangent roots, disjoint intervals), at 256×256,
-   64×32 and 40×24 tiles, with ample and overflowing capacity.  Hit sets, ``count``
+   64×32, 40×24 and 32×320 tiles (the row-loop kernels' register and
+   recompute paths), with ample and overflowing capacity.  Hit sets, ``count``
    and ``pruned`` must be exact; intervals agree within ``rtol=1e-6,
    atol=1e-5`` (same float32 operations in the same order, built with
    ``-fmad=false``; the atomic append changes only the row order, so rows
@@ -26,23 +27,41 @@ Phases, each printing one JSON line (``"phase": ...``):
    the main path's plan under ``torch.profiler`` (device busy share,
    device time by kernel).
 5. modes   — C1 and C3 at scale 0.1 (C3 as the README configures it),
-   pruning none/spatial/hierarchical × compaction fused/dense, all equal;
-   then S2 at scale 0.02 against ``backend="brute"``.
-6. timing  — each kernel's time on the largest dispatch of the path its
+   pruning none/spatial/hierarchical × compaction
+   fused/fused_rowloop/dense, all equal to the torch backend and the
+   row-loop rows identical to the fused rows; then S2 at scale 0.02
+   against ``backend="brute"``.
+6. serve   — the serving path on the same S1 database at scale 1.0:
+   ``db.broker(backend="kernel")`` with a ``SliceCache`` and a
+   ``RetryPolicy(degrade_after=1)``, the 100 query trajectories as 4
+   tickets of 25.  Ticket 2 runs under a fault plan that fails every
+   ``compaction="fused"`` dispatch, so its broker steps down to
+   ``kernel/fused_rowloop`` and launches the row-loop kernel.  The union
+   of the tickets equals phase main's rows; ticket 1 resubmitted is born
+   done from the cache.  One query trajectory whose every kernel
+   dispatch fails walks the ladder to ``kernel/dense`` and then fails
+   (on the card there is no rung below the kernels).  Then
+   ``fit_response_model(quick=True)`` on ticket 1's queries, and ticket
+   1's queries rejected under a deadline below the fitted model's priced
+   time and served under one above it (phase fit).
+7. stream  — ``db.query_stream(backend="kernel")`` on S1 at scale 0.3
+   against ``db.query``.
+8. timing  — each kernel's time on the largest dispatch of the path its
    launches are counted on (CUDA graph of repeated wrapper calls, so host
    overhead is excluded), its plain version's time, and its bound on this
-   card.
+   card; the row-loop kernels at the shapes of their chunk twins.
 
 Every ``backend="kernel"`` run sets the launch counters to 0 just before
-it and reads them just after (``kernel_path``): it fails unless the
-path's own kernel launched, no other kernel did, and the launches match
-the dispatches.
+it and reads them just after (``kernel_path``, and per ticket in phase
+serve): it fails unless the path's own kernel launched, no other kernel
+did, and (on ``db.query``) the launches match the dispatches.
 
 Then the kernel table (``{"kernels": [...]}``), the ``nvidia-smi`` name
 and power-limit line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script catches nothing and exits non-zero, also when
 CUDA is absent or the repository's ``src/`` is not beside it.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -74,10 +93,14 @@ OPS_PER_PAIR = 3
 OPS_PER_OVERLAP = 45
 
 SOURCE = "src/repro_torch/kernels/csrc/distthresh.cu"
+#: The TPU kernel (its ``pallas_call`` line) each CUDA kernel replaces;
+#: the row-loop kernels replace the same calls with ``append="rowloop"``.
 REPLACES = {
+    "distthresh_dense": "src/repro/kernels/distthresh.py:242",
     "distthresh_compact": "src/repro/kernels/distthresh.py:640",
     "distthresh_compact_live": "src/repro/kernels/distthresh.py:782",
-    "distthresh_dense": "src/repro/kernels/distthresh.py:242",
+    "distthresh_compact_rowloop": "src/repro/kernels/distthresh.py:640",
+    "distthresh_compact_live_rowloop": "src/repro/kernels/distthresh.py:782",
 }
 
 
@@ -179,8 +202,9 @@ def kernel_checks(dev) -> dict:
     err = {name: 0.0 for name in REPLACES}
     cases = 0
     d = np.float32(2.0)
-    # 40×24: a block that is not a whole number of warps.
-    for cb, qb in ((256, 256), (64, 32), (40, 24)):
+    # 40×24: a block that is not a whole number of warps; 32×320: more
+    # than 8 chunks of 32 columns, the row-loop kernels' recompute path.
+    for cb, qb in ((256, 256), (64, 32), (40, 24), (32, 320)):
         e_np, q_np = clustered(rng, 6 * cb + 37, 3 * qb + 5, groups=6)
         e = torch.from_numpy(e_np).to(dev)
         qt = torch.from_numpy(q_np).to(dev).T.contiguous()
@@ -203,29 +227,34 @@ def kernel_checks(dev) -> dict:
                      d_prune=prep[2])
         lists = [torch.from_numpy(x).to(dev) for x in live[:3]]
         kw = dict(cand_blk=cb, qry_blk=qb)
-        for capacity in (hits + 64, max(hits // 3, 1)):
-            for arm in ({}, armed):
-                label = f"compact {cb}x{qb} cap={capacity} armed={bool(arm)}"
-                k = dt.distthresh_compact(e, qt, d, capacity=capacity,
-                                          device=dev, **kw, **arm)
-                p = dt.distthresh_compact_plain(e, qt, d, capacity=hits + 64,
-                                                **kw, **arm)
-                check(int(k[5]) == int(p[5]), f"{label}: pruned differs")
-                check(bool(arm) == (int(p[5]) > 0), f"{label}: pruned count")
-                err["distthresh_compact"] = max(
-                    err["distthresh_compact"],
-                    compare_compact(k, p, capacity, label))
+        for append, suffix in (("chunk", ""), ("rowloop", "_rowloop")):
+            name = "distthresh_compact" + suffix
+            plain = getattr(dt, name + "_plain")
+            live_name = "distthresh_compact_live" + suffix
+            live_plain = getattr(dt, live_name + "_plain")
+            for capacity in (hits + 64, max(hits // 3, 1)):
+                for arm in ({}, armed):
+                    label = (f"{name} {cb}x{qb} cap={capacity} "
+                             f"armed={bool(arm)}")
+                    k = dt.distthresh_compact(e, qt, d, capacity=capacity,
+                                              append=append, device=dev,
+                                              **kw, **arm)
+                    p = plain(e, qt, d, capacity=hits + 64, **kw, **arm)
+                    check(int(k[5]) == int(p[5]), f"{label}: pruned differs")
+                    check(bool(arm) == (int(p[5]) > 0),
+                          f"{label}: pruned count")
+                    err[name] = max(err[name],
+                                    compare_compact(k, p, capacity, label))
+                    cases += 1
+                label = f"{live_name} {cb}x{qb} cap={capacity}"
+                k = dt.distthresh_compact_live(e, qt, d, *lists,
+                                               capacity=capacity,
+                                               append=append, device=dev,
+                                               **kw)
+                p = live_plain(e, qt, d, *lists, capacity=hits + 64, **kw)
+                err[live_name] = max(err[live_name],
+                                     compare_compact(k, p, capacity, label))
                 cases += 1
-            label = f"compact_live {cb}x{qb} cap={capacity}"
-            k = dt.distthresh_compact_live(e, qt, d, *lists,
-                                           capacity=capacity, device=dev,
-                                           **kw)
-            p = dt.distthresh_compact_live_plain(e, qt, d, *lists,
-                                                 capacity=hits + 64, **kw)
-            err["distthresh_compact_live"] = max(
-                err["distthresh_compact_live"],
-                compare_compact(k, p, capacity, label))
-            cases += 1
     torch.cuda.synchronize()
     return {"cases": cases, "max_abs_err": err}
 
@@ -272,12 +301,23 @@ def allowed_kernels(pruning: str, compaction: str) -> set:
     """The kernels a ``backend="kernel"`` path may launch: the dense path
     only the dense kernel; hierarchical fusion the live-tile kernel, or the
     unarmed compact kernel on a batch where no tile pair is dead; the other
-    fused paths only the compact kernel."""
+    fused paths only the compact kernel.  A row-loop path launches only
+    the row-loop kernels."""
     if compaction == "dense":
         return {"distthresh_dense"}
+    suffix = "_rowloop" if compaction == "fused_rowloop" else ""
     if pruning == "hierarchical":
-        return {"distthresh_compact_live", "distthresh_compact"}
-    return {"distthresh_compact"}
+        return {"distthresh_compact_live" + suffix,
+                "distthresh_compact" + suffix}
+    return {"distthresh_compact" + suffix}
+
+
+def identical(a, b, label) -> None:
+    """Two results of the port: every column equal, bit for bit."""
+    for f in ("entry_idx", "entry_traj", "entry_seg", "query_idx",
+              "t_enter", "t_exit"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"{label}: {f} differs")
 
 
 def kernel_path(db, label: str, require: set, **kw):
@@ -350,7 +390,7 @@ def main_path(dev, card):
           "retries": dense_res.stats.total_retries,
           "syncs": dense_res.stats.num_syncs, "launches": dense_counts,
           "max_abs_err_vs_torch": dense_err, "card": card})
-    return db, counts, dense_counts
+    return db, res, counts, dense_counts
 
 
 def profile_main(db, card):
@@ -409,17 +449,22 @@ def mode_matrix(dev, card):
         check(len(base) > 0, f"{name} produced no hits")
         walls, counts = {}, {}
         for pruning in ("none", "spatial", "hierarchical"):
-            for compaction in ("fused", "dense"):
+            fused = None
+            for compaction in ("fused", "fused_rowloop", "dense"):
                 mode = f"{pruning}/{compaction}"
                 require = allowed_kernels(pruning, compaction)
                 if len(require) > 1:
                     # C3 is the input whose boxes leave dead tiles.
-                    require = ({"distthresh_compact_live"} if name == "C3"
-                               else set())
+                    require = ({k for k in require if "live" in k}
+                               if name == "C3" else set())
                 res, walls[mode], counts[mode] = kernel_path(
                     db, f"{name} {mode}", require, pruning=pruning,
                     compaction=compaction)
                 same_rows(res, base, f"{name} {mode}")
+                if compaction == "fused":
+                    fused = res
+                elif compaction == "fused_rowloop":
+                    identical(res, fused, f"{name} {mode} vs fused")
                 path_counts[(name, mode)] = counts[mode]
         summary[name] = {"hits": len(base), "wall_s": walls,
                          "launches": counts}
@@ -431,6 +476,234 @@ def mode_matrix(dev, card):
     summary["S2"] = {"hits": len(res), "launches": counts}
     emit({"phase": "modes", "scenarios": summary, "card": card})
     return dbs, path_counts
+
+
+# ----------------------------------------------------------------------
+# The serving path: broker, cache, retry and the degradation ladder.
+# ----------------------------------------------------------------------
+def ticket_queries(db, n_tickets: int = 4):
+    """The scenario's query trajectories split into ``n_tickets`` equal
+    runs of trajectory ids: per ticket (its queries, their indices in the
+    scenario's query order)."""
+    q = db.scenario_queries
+    ids = np.array_split(np.unique(q.traj_id), n_tickets)
+    out = []
+    for run in ids:
+        idx = np.nonzero(np.isin(q.traj_id, run))[0]
+        out.append((q.take(idx), idx))
+    return out
+
+
+def union_rows(parts):
+    """Tickets' results with ``query_idx`` mapped back to the scenario's
+    query order, as one canonically sorted result (the facade's order)."""
+    from repro_torch.api import QueryResult
+    from repro_torch.core.executor import ResultSet
+    rs = ResultSet.concatenate([
+        ResultSet(r.entry_idx, r.entry_traj, r.entry_seg, idx[r.query_idx],
+                  r.t_enter, r.t_exit) for r, idx in parts])
+    return QueryResult.from_result_set(rs, order=None, d=0.0,
+                                       backend="kernel")
+
+
+def serve_path(db, main_res, card):
+    """S1 at scale 1.0 through ``db.broker(backend="kernel")``: 4 tickets
+    of 25 query trajectories, ticket 2 under a fault plan that fails every
+    ``compaction="fused"`` dispatch; then ticket 1 again from the cache.
+    Returns the launches of ticket 2 (the row-loop kernel's path) and the
+    tickets' queries."""
+    from repro_torch import faults
+    from repro_torch.serve import RetryPolicy, SliceCache
+    d = db.scenario_d
+    cache = SliceCache()
+    broker = db.broker(backend="kernel", cache=cache,
+                       retry=RetryPolicy(degrade_after=1, seed=0))
+    tickets = ticket_queries(db)
+    fail_fused = faults.FaultPlan([faults.FaultSpec(
+        "engine.dispatch", "error", times=None,
+        match={"compaction": "fused"})])
+    parts, report, ladder_counts = [], [], None
+    for k, (qk, idx) in enumerate(tickets, start=1):
+        plan = fail_fused if k == 2 else None
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if plan is not None:
+            faults.arm(plan)
+        try:
+            t = broker.submit(qk, d)
+            submit_s = time.perf_counter() - t0
+            res = t.result()
+        finally:
+            faults.disarm()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: c for n, c in launches().items() if c}
+        steps = [(g.stage, g.before, g.after, g.group)
+                 for g in t.health.degradations]
+        check(t.state == "done", f"ticket {k}: {t.state}")
+        check(all(sl.num_syncs <= 2 for sl in t.slices()),
+              f"ticket {k}: a slice took more than 2 syncs")
+        if k == 2:
+            check([(g.stage, g.after) for g in t.health.degradations]
+                  == [("compaction", "kernel/fused_rowloop")],
+                  f"ticket 2 degradations {steps}")
+            check(counts.get("distthresh_compact_rowloop", 0) > 0
+                  and "distthresh_compact" not in counts,
+                  f"ticket 2 launched {counts}")
+            check(set(counts) <= {"distthresh_compact_rowloop"},
+                  f"ticket 2 launched {counts}")
+            check(len(plan.events) == 1 and res.degraded,
+                  "ticket 2: the fault fired other than once")
+            ladder_counts = counts
+        else:
+            check(not steps and set(counts) == {"distthresh_compact"},
+                  f"ticket {k}: launched {counts}, steps {steps}")
+        parts.append((res, idx))
+        dispatched = sum(1 for b in t.plan.batches if b.num_candidates)
+        report.append({"ticket": k, "query_segments": len(qk),
+                       "wall_s": wall, "submit_plan_s": submit_s,
+                       "groups": t.num_groups, "batches": dispatched,
+                       "overflow_redispatches":
+                       sum(counts.values()) - dispatched, "hits": len(res),
+                       "retries": t.health.retries,
+                       "backoff_s": t.health.backoff_seconds,
+                       "launches": counts, "degradations": steps})
+    union = union_rows(parts)
+    err = same_rows(union, main_res, "serve tickets vs phase main")
+
+    # Ticket 1 again: born done from the cache, no device work.
+    reset_launches()
+    t0 = time.perf_counter()
+    again = broker.submit(tickets[0][0], d)
+    cached_s = time.perf_counter() - t0
+    check(again.done() and again.slices()[0].num_syncs == 0,
+          "ticket 1 resubmitted: not a cache hit")
+    check(not any(launches().values()), "cache hit launched a kernel")
+    identical(again.result(), parts[0][0], "ticket 1 from the cache")
+
+    # One query trajectory whose every kernel dispatch fails: on the card
+    # the ladder ends at kernel/dense, so the ticket fails with the
+    # injected error instead of falling back to the plain torch version.
+    q5 = tickets[3][0]
+    q5 = q5.take(np.nonzero(q5.traj_id == q5.traj_id[0])[0])
+    fail_all = faults.FaultPlan([faults.FaultSpec(
+        "engine.dispatch", "error", times=None, match={"use_kernel": True})])
+    uncached = db.broker(backend="kernel",
+                         retry=RetryPolicy(degrade_after=1, seed=0))
+    reset_launches()
+    faults.arm(fail_all)
+    try:
+        t5 = uncached.submit(q5, d)
+        uncached.run_until_idle()
+    finally:
+        faults.disarm()
+    steps5 = [(g.stage, g.after) for g in t5.health.degradations]
+    check(t5.state == "error"
+          and isinstance(t5.exception(), faults.InjectedKernelError),
+          f"failing ticket: {t5.state}, {t5.exception()!r}")
+    check(steps5 == [("compaction", "kernel/fused_rowloop"),
+                     ("compaction", "kernel/dense")],
+          f"failing ticket's ladder {steps5}")
+    check(len(fail_all.events) == uncached.retry.max_attempts
+          and all(e.ctx["use_kernel"] for e in fail_all.events),
+          "failing ticket: a dispatch ran off the kernels")
+    check(not any(launches().values()), "failing ticket launched a kernel")
+    failing = {"query_segments": len(q5), "state": t5.state,
+               "error": repr(t5.exception()), "degradations": steps5,
+               "attempts": t5.health.attempts[0]}
+    emit({"phase": "serve", "scenario": "S1", "scale": 1.0,
+          "tickets": report, "failing_ticket": failing,
+          "cache_hit_s": cached_s,
+          "cache": dataclasses.asdict(cache.stats), "union_hits": len(union),
+          "max_abs_err_vs_main": err, "card": card})
+    return ladder_counts, tickets
+
+
+#: The fit phase's deadlines, as multiples of the priced time (the
+#: model's prediction × the broker's admission slack): one below it, which
+#: admission must reject, and one the ticket's execution meets although
+#: the model leaves the host's marshal work out.
+REJECT_MULT, ADMIT_MULT = 0.5, 20.0
+
+
+def fit_path(db, tickets, card):
+    """``fit_response_model(quick=True)`` on ticket 1's queries; then
+    ticket 1's queries priced by the fitted model (a ticket without a
+    deadline), rejected under a deadline below the priced time and
+    admitted and served under one above it."""
+    from repro_torch.serve import AdmissionError
+    d = db.scenario_d
+    q1 = tickets[0][0]
+    t0 = time.perf_counter()
+    model = db.fit_response_model(q1, d, quick=True)
+    fit_s = time.perf_counter() - t0
+    try:
+        broker = db.broker(backend="kernel")
+        check(broker.predict_seconds == model.predict_batch_seconds,
+              "the broker does not price with the fitted model")
+        probe = broker.submit(q1, d)
+        base = probe.result()
+        predicted = probe.predicted_seconds
+        check(predicted is not None and predicted > 0,
+              f"the model priced ticket 1 at {predicted}")
+        priced = predicted * broker.admission_slack
+        try:
+            broker.submit(q1, d, deadline=REJECT_MULT * priced)
+            rejected = False
+        except AdmissionError:
+            rejected = True
+        check(rejected and broker.rejected == 1,
+              f"a deadline of {REJECT_MULT} × the priced {priced} s "
+              "was admitted")
+        deadline = ADMIT_MULT * priced
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = broker.submit(q1, d, deadline=deadline)
+        res = t.result()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        db.response_model = None
+    check(t.state == "done" and len(res) > 0, "deadline ticket failed")
+    identical(res, base, "deadline ticket vs the same queries undeadlined")
+    emit({"phase": "fit", "fit_s": fit_s,
+          "alpha_mean": float(np.mean(model.alphas)),
+          "alpha_by_epoch": [float(a) for a in model.alphas],
+          "theta_s": model.device.theta, "predicted_s": t.predicted_seconds,
+          "priced_s": priced, "rejected_deadline_s": REJECT_MULT * priced,
+          "deadline_s": deadline, "measured_s": wall,
+          "execution_s": wall - (t.submitted_at - t0), "hits": len(res),
+          "card": card})
+
+
+def stream_path(dev, card):
+    """``db.query_stream(backend="kernel")`` on S1 at scale 0.3 against
+    ``db.query`` on the same database."""
+    from repro_torch.api import TrajectoryDB
+    db = TrajectoryDB.from_scenario("S1", scale=0.3, device=dev)
+    q, d = db.scenario_queries, db.scenario_d
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, st = db.query_stream(q, d, backend="kernel")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: c for n, c in launches().items() if c}
+    check(set(counts) == {"distthresh_compact"},
+          f"stream launched {counts}")
+    base, base_wall = timed_query(db, "kernel")
+    check(len(res) > 0, "stream produced no hits")
+    err = same_rows(res, base, "query_stream vs query")
+    emit({"phase": "stream", "scenario": "S1", "scale": 0.3,
+          "query_segments": len(q), "wall_s": wall,
+          "query_wall_s": base_wall, "hits": len(res),
+          "groups": st.groups, "group_sizes": st.group_sizes,
+          "batches_per_call": st.batches_per_call,
+          "reissued": st.reissued,
+          "duplicates_dropped": st.duplicates_dropped,
+          "scheduler_wall_s": st.wall_seconds, "launches": counts,
+          "max_abs_err_vs_query": err, "card": card})
 
 
 # ----------------------------------------------------------------------
@@ -532,29 +805,33 @@ def kernel_timing(dev, s1, c3, counts, card):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
-    # distthresh_compact, on the main path's largest dispatch.
+    # distthresh_compact and its row-loop twin, on the main path's largest
+    # dispatch.
     prep = ops._host_tile_prune(e_np, q_np, d, 256, 256)
     arm = {} if prep is None else dict(
         e_mbr=torch.from_numpy(prep[0]).to(dev),
         q_mbr=torch.from_numpy(prep[1]).to(dev), d_prune=prep[2])
-    plain = dt.distthresh_compact_plain(e, qt, d, capacity=1 << 20, **arm)
-    hits = int(plain[4])
-    cap = max(hits, 1)
-    k = dt.distthresh_compact(e, qt, d, capacity=cap, device=dev, **arm)
-    err = compare_compact(k, plain, cap, "timing compact")
     tiles = None
     if prep is not None:
         tiles = dt._tile_mbr_live(arm["e_mbr"], arm["q_mbr"], prep[2])
     pairs, overlap = pair_work(e, qt, tiles)
-    table.append(row(
-        "distthresh_compact", [c, q], err,
-        graph_ms(lambda: dt.distthresh_compact(
-            e, qt, d, capacity=cap, device=dev, **arm)),
-        event_ms(lambda: dt.distthresh_compact_plain(
-            e, qt, d, capacity=cap, **arm)),
-        bound(32 * (c + q) + 16 * hits + 8,
-              OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
-        armed=bool(arm)))
+    for append, name in (("chunk", "distthresh_compact"),
+                         ("rowloop", "distthresh_compact_rowloop")):
+        plain_fn = getattr(dt, name + "_plain")
+        plain = plain_fn(e, qt, d, capacity=1 << 20, **arm)
+        hits = int(plain[4])
+        cap = max(hits, 1)
+        k = dt.distthresh_compact(e, qt, d, capacity=cap, append=append,
+                                  device=dev, **arm)
+        err = compare_compact(k, plain, cap, f"timing {name}")
+        table.append(row(
+            name, [c, q], err,
+            graph_ms(lambda: dt.distthresh_compact(
+                e, qt, d, capacity=cap, append=append, device=dev, **arm)),
+            event_ms(lambda: plain_fn(e, qt, d, capacity=cap, **arm)),
+            bound(32 * (c + q) + 16 * hits + 8,
+                  OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
+            armed=bool(arm)))
 
     # distthresh_dense, on the same dispatch: S1's dense path plans the
     # same batches.
@@ -571,8 +848,9 @@ def kernel_timing(dev, s1, c3, counts, card):
         bound(32 * (c + q) + 9 * c * q,
               OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap)))
 
-    # distthresh_compact_live, on the largest C3 hierarchical dispatch that
-    # launches it (one with dead tiles and at least one live tile).
+    # distthresh_compact_live and its row-loop twin, on the largest C3
+    # hierarchical dispatch that launches them (one with dead tiles and at
+    # least one live tile).
     d3 = np.float32(c3.scenario_d)
 
     def has_live(e_np, q_np):
@@ -582,27 +860,29 @@ def kernel_timing(dev, s1, c3, counts, card):
     c, q = e.shape[0], qt.shape[1]
     live = ops._host_live_tiles(e_np, q_np, d3, 256, 256)
     lists = [torch.from_numpy(x).to(dev) for x in live[:3]]
-    plain = dt.distthresh_compact_live_plain(e, qt, d3, *lists,
-                                             capacity=1 << 20)
-    hits = int(plain[4])
-    cap = max(hits, 1)
-    k = dt.distthresh_compact_live(e, qt, d3, *lists, capacity=cap,
-                                   device=dev)
-    err = compare_compact(k, plain, cap, "timing compact_live")
     n_live = int(live[2][0])
     ntc, ntq = -(-c // 256), -(-q // 256)
     tiles = torch.zeros((ntc, ntq), dtype=torch.bool, device=dev)
     tiles[lists[0][:n_live].long(), lists[1][:n_live].long()] = True
     pairs, overlap = pair_work(e, qt, tiles)
-    table.append(row(
-        "distthresh_compact_live", [c, q], err,
-        graph_ms(lambda: dt.distthresh_compact_live(
-            e, qt, d3, *lists, capacity=cap, device=dev)),
-        event_ms(lambda: dt.distthresh_compact_live_plain(
-            e, qt, d3, *lists, capacity=cap)),
-        bound(32 * (c + q) + 8 * len(live[0]) + 16 * hits + 4,
-              OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
-        live_tiles=n_live))
+    for append, name in (("chunk", "distthresh_compact_live"),
+                         ("rowloop", "distthresh_compact_live_rowloop")):
+        plain_fn = getattr(dt, name + "_plain")
+        plain = plain_fn(e, qt, d3, *lists, capacity=1 << 20)
+        hits = int(plain[4])
+        cap = max(hits, 1)
+        k = dt.distthresh_compact_live(e, qt, d3, *lists, capacity=cap,
+                                       append=append, device=dev)
+        err = compare_compact(k, plain, cap, f"timing {name}")
+        table.append(row(
+            name, [c, q], err,
+            graph_ms(lambda: dt.distthresh_compact_live(
+                e, qt, d3, *lists, capacity=cap, append=append,
+                device=dev)),
+            event_ms(lambda: plain_fn(e, qt, d3, *lists, capacity=cap)),
+            bound(32 * (c + q) + 8 * len(live[0]) + 16 * hits + 4,
+                  OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
+            live_tiles=n_live))
     emit({"phase": "timing", "card": card,
           "note": "ms: device time per wrapper call (its output fills "
                   "included), CUDA graph; plain_ms: CUDA events; "
@@ -635,9 +915,14 @@ def main() -> int:
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "rtol": K_RTOL, "atol": K_ATOL, **checks})
 
-    s1, main_counts, dense_counts = main_path(dev, card)
+    s1, main_res, main_counts, dense_counts = main_path(dev, card)
     profile_main(s1, card)
     dbs, path_counts = mode_matrix(dev, card)
+    ladder_counts, tickets = serve_path(s1, main_res, card)
+    fit_path(s1, tickets, card)
+    stream_path(dev, card)
+    c3_live = path_counts[("C3", "hierarchical/fused")]
+    c3_live_rowloop = path_counts[("C3", "hierarchical/fused_rowloop")]
     counts = {
         "distthresh_compact": ("S1 scale 1.0, default policy (main path)",
                                main_counts["distthresh_compact"]),
@@ -645,9 +930,18 @@ def main() -> int:
                              dense_counts["distthresh_dense"]),
         "distthresh_compact_live": (
             "C3 scale 0.1, pruning='hierarchical', compaction='fused'",
-            path_counts[("C3", "hierarchical/fused")][
-                "distthresh_compact_live"])}
-    table = kernel_timing(dev, s1, dbs["C3"], counts, card)
+            c3_live["distthresh_compact_live"]),
+        "distthresh_compact_rowloop": (
+            "S1 scale 1.0, serve ticket 2 after the ladder's step to "
+            "kernel/fused_rowloop",
+            ladder_counts["distthresh_compact_rowloop"]),
+        "distthresh_compact_live_rowloop": (
+            "C3 scale 0.1, pruning='hierarchical', "
+            "compaction='fused_rowloop'",
+            c3_live_rowloop["distthresh_compact_live_rowloop"])}
+    by_name = {r["name"]: r for r in kernel_timing(dev, s1, dbs["C3"],
+                                                     counts, card)}
+    table = [by_name[name] for name in REPLACES]
     torch.cuda.synchronize()
 
     emit({"kernels": table})

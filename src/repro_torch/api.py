@@ -16,6 +16,14 @@ Backends:
   executor (the counterpart of ``"jnp"``);
 * ``"brute"`` — the all-pairs oracle.
 
+``db.query_stream(...)`` runs a query set through the deadline/re-issue
+scheduler (``repro_torch.core.scheduler``), ``db.broker(...)`` returns the
+session-oriented serving front door
+(``repro_torch.serve.broker.QueryBroker``: ticketed submit, a ``step()``
+pump delivering one dispatch group at a time, §8-model admission, retry
+and the degradation ladder), and ``db.fit_response_model(...)`` fits the
+§8 model that prices both.
+
 Everything runs on ``device`` (default ``"cuda"``); the CPU is used only
 when the caller passes ``device="cpu"``, and a ``"cuda"`` request without
 CUDA raises.
@@ -32,16 +40,17 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Mapping, Protocol, runtime_checkable
+from typing import Callable, Mapping, Protocol, runtime_checkable
 
 import numpy as np
 
 from repro_torch.core.batching import ALGORITHMS, BatchPlan
 from repro_torch.core.engine import (DistanceThresholdEngine, ExecStats,
                                      ResultSet, brute_force)
-from repro_torch.core.errors import CapacityError
+from repro_torch.core.errors import CapacityError, PodFailedError
 from repro_torch.core.index import DEFAULT_NUM_BINS, TemporalBinIndex
 from repro_torch.core.planner import PRUNINGS, QueryPlan, QueryPlanner
+from repro_torch.core.scheduler import DeadlineScheduler, SchedulerStats
 from repro_torch.core.segments import SegmentArray
 from repro_torch.kernels.distthresh import DEFAULT_CAND_BLK, DEFAULT_QRY_BLK
 
@@ -89,7 +98,8 @@ class ExecutionPolicy:
     cand_blk: int = DEFAULT_CAND_BLK
     qry_blk: int = DEFAULT_QRY_BLK
     capacity: int = 4096                  # result-buffer slots per batch
-    compaction: str = "fused"             # "fused" in-kernel | "dense" 2-phase
+    compaction: str = "fused"             # "fused" in-kernel | "fused_rowloop"
+    #                                       row-loop kernels | "dense" 2-phase
     pipeline: bool = True                 # two-phase executor (≤ 2 syncs/group)
     #: executor dispatch groups per query set (None → derived by the
     #: planner; one group unless the predicted hit volume is large).
@@ -100,6 +110,14 @@ class ExecutionPolicy:
 
     # -- brute oracle ---------------------------------------------------
     brute_chunk: int = 2048
+
+    # -- query_stream scheduling ---------------------------------------
+    stream_workers: int = 2
+    stream_slack: float = 4.0
+    stream_min_deadline: float = 0.05
+    #: batches per scheduler worker call (None → auto, ≥ 2 when possible —
+    #: each call is one pipelined dispatch over the whole group)
+    stream_group_size: int | None = None
 
     def with_(self, **updates) -> "ExecutionPolicy":
         """Functional update (the policy itself is immutable)."""
@@ -143,6 +161,10 @@ class QueryResult:
     backend: str
     stats: ExecStats | None = None            # engine backends only
     plan: BatchPlan | QueryPlan | None = None  # engine backends only
+    #: True when the serving stack produced this result through a
+    #: degradation-ladder step (slower route, same rows) or when it is a
+    #: ``QueryTicket.partial_result`` of an incomplete ticket.
+    degraded: bool = False
 
     def __len__(self) -> int:
         return int(self.entry_idx.shape[0])
@@ -309,7 +331,15 @@ class TrajectoryDB:
         self.device = self._base_engine.device
         self.segments: SegmentArray = self._base_engine.db
         self.index: TemporalBinIndex = self._base_engine.index
+        #: Monotone data-version counter — result caches key on it, so
+        #: any mutation path must bump it to invalidate them.  The
+        #: in-memory database is immutable, so it stays 0.
+        self.data_epoch: int = 0
         self._backends: dict[tuple, QueryBackend] = {}
+        #: fitted §8 model (see :meth:`fit_response_model`); when set it is
+        #: the default ``predict_hits`` for planning and ``predict_seconds``
+        #: for broker admission and stream deadlines.
+        self.response_model = None
         # Populated by from_scenario for convenience.
         self.scenario_queries: SegmentArray | None = None
         self.scenario_d: float | None = None
@@ -398,16 +428,21 @@ class TrajectoryDB:
     def planner(self, pol: ExecutionPolicy | None = None, *,
                 num_queries: int = 0) -> QueryPlanner:
         """The :class:`~repro_torch.core.planner.QueryPlanner` a policy
-        resolves to."""
+        resolves to.  A fitted §8 model attached via
+        :meth:`fit_response_model` feeds its ``predict_hits``
+        (dispatch-group sizing)."""
         pol = pol or self.policy
         if pol.pruning not in PRUNINGS:
             raise ValueError(f"unknown pruning {pol.pruning!r}; "
                              f"choose from {PRUNINGS}")
+        predict_hits = (self.response_model.predict_batch_hits
+                        if self.response_model is not None else None)
         return QueryPlanner(
             self.index, algorithm=pol.batching,
             params=pol.resolved_batch_params(num_queries),
             default_capacity=pol.capacity, group_size=pol.group_size,
-            pruning=pol.pruning, max_subranges=pol.max_subranges)
+            pruning=pol.pruning, predict_hits=predict_hits,
+            max_subranges=pol.max_subranges)
 
     def plan(self, queries: SegmentArray,
              policy: ExecutionPolicy | None = None, *,
@@ -481,9 +516,140 @@ class TrajectoryDB:
         return QueryResult.from_result_set(
             rs, order=order, d=d, backend=backend, stats=stats, plan=plan)
 
+    # -- streaming / serving ---------------------------------------------
+    def query_stream(self, queries: SegmentArray, d: float, *,
+                     backend: str = "kernel", batching: str | None = None,
+                     policy: ExecutionPolicy | None = None,
+                     compaction: str | None = None,
+                     pipeline: bool | None = None,
+                     pruning: str | None = None,
+                     predict_seconds: Callable | None = None,
+                     delay_hook: Callable | None = None,
+                     **batch_params) -> tuple[QueryResult, SchedulerStats]:
+        """Like :meth:`query`, but executes the plan through the
+        deadline/re-issue scheduler (``repro_torch.core.scheduler``) — the
+        mode a serving deployment uses, where a straggling batch *group* is
+        re-issued rather than stalling the response.
+
+        The scheduler hands every worker call a *group* of consecutive
+        batches (≥ 2 by default; ``ExecutionPolicy.stream_group_size``
+        overrides) and each call runs as one pipelined two-phase dispatch
+        — ≤ 2 host syncs per group.  Re-issue, deduplication and deadlines
+        (§8-model-derived, summed over the group) all operate on groups.
+        """
+        if backend not in ENGINE_BACKENDS:
+            raise ValueError(
+                f"query_stream requires an engine backend "
+                f"{ENGINE_BACKENDS}, got {backend!r}")
+        d = _validate_threshold(d)
+        if len(queries) == 0:
+            return (QueryResult.from_result_set(
+                ResultSet.empty(), order=None, d=d, backend=backend),
+                SchedulerStats())
+        _validate_segments(queries, "queries")
+        pol = self._resolve_policy(batching, policy, batch_params,
+                                   compaction, pipeline, pruning)
+        engine = self.backend(backend, pol).engine
+        qs, order = self._sorted(queries)
+        plan = self._make_plan(qs, pol, d=d)
+        if predict_seconds is None and self.response_model is not None:
+            predict_seconds = self.response_model.predict_batch_seconds
+        sched = DeadlineScheduler(
+            engine, workers=pol.stream_workers, slack=pol.stream_slack,
+            min_deadline=pol.stream_min_deadline,
+            predict_seconds=predict_seconds, delay_hook=delay_hook,
+            group_size=pol.stream_group_size)
+        rs, sstats = sched.execute(qs, d, plan)
+        result = QueryResult.from_result_set(
+            rs, order=order, d=d, backend=backend, plan=plan)
+        return result, sstats
+
+    # -- §8 response-time model ------------------------------------------
+    def fit_response_model(self, queries: SegmentArray | None = None,
+                           d: float | None = None, *,
+                           s: int = DEFAULT_BATCH_SIZE,
+                           backend: str = "kernel", quick: bool = True,
+                           num_epochs: int = 20, seed: int = 0):
+        """Fit the §8 :class:`~repro_torch.core.perfmodel.ResponseTimeModel`
+        on this database and attach it as the default predictor.
+
+        One model object then feeds the planner's ``predict_hits``
+        (dispatch-group sizing), the broker's ``predict_seconds``
+        admission pricing and ``query_stream``'s scheduler deadlines.  The
+        device curves time ``count_hits`` through ``backend``'s path on
+        this database's device (the dense kernel for ``"kernel"``); the
+        host curves and the α fit run ``backend``'s engine.
+        ``quick=True`` (default) uses small benchmark grids; pass
+        ``quick=False`` for the paper's full grids.  Returns the fitted
+        model (also at ``self.response_model``; set that to ``None`` to
+        detach).
+        """
+        from repro_torch.core import perfmodel
+        queries = queries if queries is not None else self.scenario_queries
+        d = d if d is not None else self.scenario_d
+        if queries is None or d is None:
+            raise ValueError("fit_response_model needs a representative "
+                             "query workload and threshold (or a scenario "
+                             "database)")
+        curves = dict(use_kernel=backend == "kernel", seed=seed,
+                      device=self.device)
+        if quick:
+            device = perfmodel.benchmark_device_curves(
+                c_values=(256, 2048), q_values=(16, 128), repeats=1,
+                **curves)
+        else:
+            device = perfmodel.benchmark_device_curves(**curves)
+        engine = self.engine(backend)
+        qs, _ = self._sorted(queries)
+        host = perfmodel.benchmark_host_curves(
+            engine, qs, s_values=(16, 64) if quick else (16, 32, 64, 128, 256),
+            seed=seed)
+        model = perfmodel.ResponseTimeModel(device, host,
+                                            num_epochs=num_epochs)
+        model.fit_alphas(engine, qs, float(d), s=s, seed=seed)
+        self.response_model = model
+        return model
+
+    # -- session-oriented serving ----------------------------------------
+    def broker(self, *, backend: str = "kernel",
+               policy: ExecutionPolicy | None = None, **kwargs):
+        """A :class:`repro_torch.serve.broker.QueryBroker` bound to this
+        database — the session-oriented serving front door: ``submit()``
+        returns a ticketed future-like handle, ``step()`` /
+        ``run_until_idle()`` pump pending work one dispatch group at a time
+        with incremental per-group result slices, and admission control
+        prices tickets with the §8 perf model.  Keyword arguments are
+        forwarded to the broker constructor (``predict_seconds=``,
+        ``max_inflight_interactions=``, ``cache=``, ``retry=``, ...).
+        """
+        from repro_torch.serve.broker import QueryBroker
+        return QueryBroker(self, backend=backend, policy=policy, **kwargs)
+
+
+def __getattr__(name: str):
+    # Broker types are re-exported here (the facade is the stable surface)
+    # but defined in repro_torch.serve.broker, which imports this module —
+    # the lazy hook breaks the cycle.
+    if name in ("QueryBroker", "QueryTicket", "GroupSlice",
+                "AdmissionError", "DeadlineExceededError",
+                "TicketHealth", "Degradation"):
+        from repro_torch.serve import broker as _broker
+        return getattr(_broker, name)
+    if name == "RetryPolicy":
+        from repro_torch.serve.retry import RetryPolicy
+        return RetryPolicy
+    if name in ("FaultPlan", "FaultSpec"):
+        from repro_torch import faults
+        return getattr(faults, name)
+    raise AttributeError(f"module 'repro_torch.api' has no attribute "
+                         f"{name!r}")
+
 
 __all__ = [
-    "BACKENDS", "DEFAULT_BATCH_SIZE", "ENGINE_BACKENDS", "BruteBackend",
-    "CapacityError", "EngineBackend", "ExecutionPolicy", "QueryBackend",
-    "QueryResult", "TrajectoryDB",
+    "BACKENDS", "DEFAULT_BATCH_SIZE", "ENGINE_BACKENDS", "AdmissionError",
+    "BruteBackend", "CapacityError", "DeadlineExceededError", "Degradation",
+    "EngineBackend", "ExecutionPolicy", "FaultPlan", "FaultSpec",
+    "GroupSlice", "PodFailedError", "QueryBackend", "QueryBroker",
+    "QueryResult", "QueryTicket", "RetryPolicy", "TicketHealth",
+    "TrajectoryDB",
 ]

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch.core.batching import BatchPlan
 from repro_torch.core.executor import (BatchStats, Dispatch,  # noqa: F401 (stable re-exports)
                                        ExecStats, ResultSet, make_executor)
@@ -63,6 +64,10 @@ class _QueryBlockDispatcher:
 
     def dispatch(self, batch, capacity: int) -> Dispatch:
         eng = self.engine
+        if faults.armed():
+            faults.inject("engine.dispatch", q_first=int(batch.q_first),
+                          use_kernel=eng.use_kernel,
+                          compaction=eng.compaction)
         # Hierarchical pruning plans box-level sub-ranges in the index's
         # *permuted* segment order, so the dispatched slices come from the
         # permuted packed copy (identical to ``_packed`` when K=1).
@@ -81,7 +86,11 @@ class _QueryBlockDispatcher:
         return Dispatch(batch, capacity, _stage_to_host(out, self.device))
 
     def count(self, dp: Dispatch) -> int:
-        return int(dp.out["count"])
+        count = int(dp.out["count"])
+        if faults.armed():
+            count = faults.corrupt("engine.count", count,
+                                   q_first=int(dp.batch.q_first))
+        return count
 
     def tile_stats(self, dp: Dispatch) -> tuple[int, int]:
         """Kernel-level pruning counters (executor hook)."""
@@ -92,8 +101,12 @@ class _QueryBlockDispatcher:
         return _bucket(count) if count > dp.capacity else None
 
     def marshal(self, dp: Dispatch, count: int) -> ResultSet | None:
+        if faults.armed():
+            faults.inject("engine.marshal", q_first=int(dp.batch.q_first))
         batch, out, db = dp.batch, dp.out, self.engine.db
-        # Mask on the buffers' -1 pads rather than trusting ``count``.
+        # Mask on the buffers' -1 pads rather than trusting ``count``: a
+        # corrupted overflow count then costs at most one bounded retry and
+        # can neither leak pad rows nor drop real ones.
         e_buf = out["entry_idx"].numpy()
         keep = e_buf >= 0
         if not keep.any():
@@ -175,12 +188,20 @@ class DistanceThresholdEngine:
 
     # ------------------------------------------------------------------
     def execute(self, queries: SegmentArray, d: float,
-                plan: BatchPlan | QueryPlan) -> tuple[ResultSet, ExecStats]:
+                plan: BatchPlan | QueryPlan, *,
+                pipeline: bool | None = None) -> tuple[ResultSet, ExecStats]:
         """Run every batch in ``plan`` against the database.
 
         ``plan`` may be a ``QueryPlan`` (the facade's planner output) or a
         legacy ``BatchPlan`` (coerced to a single-group plan sized by
-        ``default_capacity``).
+        ``default_capacity``).  ``pipeline`` overrides the engine's
+        executor choice for this call (the perf-model fits run the
+        per-batch executor).
+
+        Thread-safe: the deadline scheduler and the broker's straggler
+        duplicates call it from several threads at once.  Every dispatch
+        allocates its own device outputs, pinned host copies and fence, so
+        two executions of one plan share only read-only inputs.
         """
         if not queries.is_sorted():
             raise ValueError(
@@ -188,9 +209,10 @@ class DistanceThresholdEngine:
                 "repro_torch.api.TrajectoryDB.query, which sorts "
                 "automatically")
         qplan = as_query_plan(plan, default_capacity=self.default_capacity)
-        executor = make_executor(self.dispatcher(queries.packed(), d),
-                                 pipeline=self.pipeline,
-                                 max_capacity_retries=self.max_capacity_retries)
+        executor = make_executor(
+            self.dispatcher(queries.packed(), d),
+            pipeline=self.pipeline if pipeline is None else pipeline,
+            max_capacity_retries=self.max_capacity_retries)
         return executor.run(qplan)
 
 

@@ -113,6 +113,9 @@ class ExecStats:
     num_groups: int = 1
     #: interactions the planner's spatial pruning removed before dispatch.
     pruned_interactions: int = 0
+    #: degradation-ladder steps taken while producing this result
+    #: (filled in by the serving broker; empty on a clean execution).
+    degradations: list = dataclasses.field(default_factory=list)
 
     @property
     def pruned_tiles(self) -> int:

@@ -41,6 +41,11 @@ SIGNATURES = {
                                        _I, _I, _P, _P, _P, _I, _P, _P, _P,
                                        _P, _P, _P),
 }
+# The row-loop kernels take their chunk twins' arguments.
+SIGNATURES["distthresh_compact_rowloop_launch"] = SIGNATURES[
+    "distthresh_compact_launch"]
+SIGNATURES["distthresh_compact_live_rowloop_launch"] = SIGNATURES[
+    "distthresh_compact_live_launch"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -1,6 +1,6 @@
 // Distance-threshold kernels for Hopper (sm_90a), with a plain C interface.
 //
-// Three kernels share one interval solve, `interval_solve`, the operation
+// Five kernels share one interval solve, `interval_solve`, the operation
 // sequence of `_interval_math` in repro/kernels/distthresh.py (and of
 // repro_torch/kernels/ref.py::interval_math).  Built with -fmad=false and
 // IEEE division and square root, so no product is fused into an add and
@@ -29,6 +29,30 @@
 //   (repro/kernels/distthresh.py:697, pallas_call at :782).  The same tile
 //   body with blockIdx.x as the slot of a live-tile list read from device
 //   memory; slots >= n_live return at once.  Same bound, same gaps.
+//
+// distthresh_compact_rowloop_kernel  replaces distthresh_compact_pallas
+//   (append="rowloop", repro/kernels/distthresh.py:536, pallas_call at :640,
+//   body _rowloop_tile_body at :412).  On the TPU the row loop existed to
+//   avoid a gather; here it is its own design: one block per tile as above,
+//   but one warp per entry row.  Lane l solves columns l, l+32, ... once and
+//   keeps (hit, t_enter, t_exit) in registers (up to 8 chunks, qry_blk <=
+//   256; wider tiles recompute in a second pass), one __ballot_sync per
+//   chunk gives the row's hits, lane 0 claims the row's base with one
+//   atomicAdd, and each hit lane writes at base + earlier chunks' hits +
+//   popc(mask & lanes below).  Each pair is solved once (the chunk kernel
+//   solves it twice); columns stay ascending within a row; `count` stays
+//   exact on overflow; rows land in a run-dependent order.  The armed
+//   variant runs the tile box test first, as the chunk kernel does.
+//   Bound: float32 arithmetic, ~45 operations per temporally overlapping
+//   pair, plus one global atomic per row that has hits.
+//   Left on the table: one atomic per row instead of one per tile; at most
+//   8 warps per block, so a 256-row tile runs 32 rows per warp in turn;
+//   lanes past the last column idle in the last chunk (100 columns fill 4
+//   chunks of 32).
+//
+// distthresh_compact_live_rowloop_kernel  replaces
+//   distthresh_compact_live_pallas(append="rowloop") (:697, pallas_call at
+//   :782): the row-loop body over a live-tile list, one block per slot.
 //
 // distthresh_dense_kernel  replaces distthresh_pallas
 //   (repro/kernels/distthresh.py:214, pallas_call at :242).  One thread per
@@ -153,20 +177,16 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
   return (wid > 0 ? warp_sums[wid - 1] : 0) + x - v;
 }
 
-// One (entry tile ti, query tile tj) of the fused compaction.
-__device__ __forceinline__ void compact_tile(
-    int ti, int tj, const float* __restrict__ entries, int C,
-    const float* __restrict__ qT, long long ldq, int Q, float d,
-    int cand_blk, int qry_blk, int valid_c, int valid_q, int capacity,
-    int* __restrict__ e_idx, int* __restrict__ q_idx,
-    float* __restrict__ t_enter, float* __restrict__ t_exit,
-    int* __restrict__ count) {
-  extern __shared__ float smem[];  // 8 * qry_blk: derived query columns
-  __shared__ int s_base;
+// Stage query tile tj's columns in shared memory as derived columns
+// (velocity, anchor, ts, te; 8 * qry_blk floats) and return how many
+// columns are valid.  Every thread of the block must call it.
+__device__ __forceinline__ int stage_queries(int tj,
+                                             const float* __restrict__ qT,
+                                             long long ldq, int Q,
+                                             int qry_blk, int valid_q,
+                                             float* smem) {
   const int q0 = tj * qry_blk;
   const int ncols = max(0, min(qry_blk, min(Q, valid_q) - q0));
-
-  // Stage the tile's queries as derived columns (velocity, anchor, ts, te).
   for (int k = threadIdx.x; k < ncols; k += blockDim.x) {
     const float* p = qT + q0 + k;
     Side s = make_side(p[0], p[ldq], p[2 * ldq], p[3 * ldq], p[4 * ldq],
@@ -181,6 +201,29 @@ __device__ __forceinline__ void compact_tile(
     smem[7 * qry_blk + k] = s.te;
   }
   __syncthreads();
+  return ncols;
+}
+
+__device__ __forceinline__ Side staged_query(const float* smem, int qry_blk,
+                                             int k) {
+  return {smem[k], smem[qry_blk + k], smem[2 * qry_blk + k],
+          smem[3 * qry_blk + k], smem[4 * qry_blk + k],
+          smem[5 * qry_blk + k], smem[6 * qry_blk + k],
+          smem[7 * qry_blk + k]};
+}
+
+// One (entry tile ti, query tile tj) of the fused compaction.
+__device__ __forceinline__ void compact_tile(
+    int ti, int tj, const float* __restrict__ entries, int C,
+    const float* __restrict__ qT, long long ldq, int Q, float d,
+    int cand_blk, int qry_blk, int valid_c, int valid_q, int capacity,
+    int* __restrict__ e_idx, int* __restrict__ q_idx,
+    float* __restrict__ t_enter, float* __restrict__ t_exit,
+    int* __restrict__ count) {
+  extern __shared__ float smem[];  // 8 * qry_blk: derived query columns
+  __shared__ int s_base;
+  const int q0 = tj * qry_blk;
+  const int ncols = stage_queries(tj, qT, ldq, Q, qry_blk, valid_q, smem);
 
   const int local = threadIdx.x;
   const int row = ti * cand_blk + local;
@@ -193,10 +236,7 @@ __device__ __forceinline__ void compact_tile(
   int n = 0;
   if (row_ok) {
     for (int k = 0; k < ncols; ++k) {
-      Side q = {smem[k], smem[qry_blk + k], smem[2 * qry_blk + k],
-                smem[3 * qry_blk + k], smem[4 * qry_blk + k],
-                smem[5 * qry_blk + k], smem[6 * qry_blk + k],
-                smem[7 * qry_blk + k]};
+      Side q = staged_query(smem, qry_blk, k);
       float te, tx;
       n += interval_solve(e, q, dd, &te, &tx) ? 1 : 0;
     }
@@ -211,10 +251,7 @@ __device__ __forceinline__ void compact_tile(
   int dst = s_base + offset;
   if (n == 0 || dst >= capacity) return;
   for (int k = 0; k < ncols && dst < capacity; ++k) {
-    Side q = {smem[k], smem[qry_blk + k], smem[2 * qry_blk + k],
-              smem[3 * qry_blk + k], smem[4 * qry_blk + k],
-              smem[5 * qry_blk + k], smem[6 * qry_blk + k],
-              smem[7 * qry_blk + k]};
+    Side q = staged_query(smem, qry_blk, k);
     float te, tx;
     if (interval_solve(e, q, dd, &te, &tx)) {
       e_idx[dst] = row;
@@ -222,6 +259,107 @@ __device__ __forceinline__ void compact_tile(
       t_enter[dst] = te;
       t_exit[dst] = tx;
       ++dst;
+    }
+  }
+}
+
+// Chunks of 32 columns whose results one warp keeps in registers
+// (qry_blk <= 256); a wider tile recomputes its row in a second pass.
+constexpr int kRowChunks = 8;
+
+// One (entry tile ti, query tile tj) of the row-loop compaction: one warp
+// per entry row, the block's warps striding over the tile's rows.  Lane l
+// solves columns l, l + 32, ...; one ballot per 32-column chunk gives the
+// row's hit mask, lane 0 claims the row's base with one atomicAdd on
+// `count`, and each hit lane writes at base + (hits of earlier chunks) +
+// (hits of lower lanes in its chunk), so columns stay in ascending order
+// within a row.  Rows past `capacity` are dropped; `count` stays exact.
+__device__ __forceinline__ void rowloop_tile(
+    int ti, int tj, const float* __restrict__ entries, int C,
+    const float* __restrict__ qT, long long ldq, int Q, float d,
+    int cand_blk, int qry_blk, int valid_c, int valid_q, int capacity,
+    int* __restrict__ e_idx, int* __restrict__ q_idx,
+    float* __restrict__ t_enter, float* __restrict__ t_exit,
+    int* __restrict__ count) {
+  extern __shared__ float smem[];  // 8 * qry_blk: derived query columns
+  const int q0 = tj * qry_blk;
+  const int ncols = stage_queries(tj, qT, ldq, Q, qry_blk, valid_q, smem);
+  const int nchunks = (ncols + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const int nrows = min(cand_blk, min(C, valid_c) - ti * cand_blk);
+  const float dd = d * d;
+
+  // The warp index is uniform across a warp, so every ballot below runs
+  // with all 32 lanes.
+  for (int r = threadIdx.x >> 5; r < nrows; r += blockDim.x >> 5) {
+    const int row = ti * cand_blk + r;
+    const Side e = load_entry(entries, row);
+    unsigned mask[kRowChunks];
+    float te[kRowChunks], tx[kRowChunks];
+    int n_r = 0;
+    if (nchunks <= kRowChunks) {
+#pragma unroll
+      for (int c = 0; c < kRowChunks; ++c) {
+        mask[c] = 0u;
+        if (c < nchunks) {
+          const int k = c * 32 + lane;
+          bool h = false;
+          if (k < ncols)
+            h = interval_solve(e, staged_query(smem, qry_blk, k), dd, &te[c],
+                               &tx[c]);
+          mask[c] = __ballot_sync(0xffffffffu, h);
+          n_r += __popc(mask[c]);
+        }
+      }
+    } else {
+      for (int c = 0; c < nchunks; ++c) {
+        const int k = c * 32 + lane;
+        float a, b;
+        const bool h = k < ncols &&
+            interval_solve(e, staged_query(smem, qry_blk, k), dd, &a, &b);
+        n_r += __popc(__ballot_sync(0xffffffffu, h));
+      }
+    }
+    if (n_r == 0) continue;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(count, n_r);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= capacity) continue;
+
+    int before = 0;  // hits of this row in earlier chunks
+    if (nchunks <= kRowChunks) {
+#pragma unroll
+      for (int c = 0; c < kRowChunks; ++c) {
+        if (c < nchunks) {
+          if ((mask[c] >> lane) & 1u) {
+            const int dst = base + before + __popc(mask[c] & lanes_below);
+            if (dst < capacity) {
+              e_idx[dst] = row;
+              q_idx[dst] = q0 + c * 32 + lane;
+              t_enter[dst] = te[c];
+              t_exit[dst] = tx[c];
+            }
+          }
+          before += __popc(mask[c]);
+        }
+      }
+    } else {
+      for (int c = 0; c < nchunks && base + before < capacity; ++c) {
+        const int k = c * 32 + lane;
+        float a, b;
+        const bool h = k < ncols &&
+            interval_solve(e, staged_query(smem, qry_blk, k), dd, &a, &b);
+        const unsigned m = __ballot_sync(0xffffffffu, h);
+        const int dst = base + before + __popc(m & lanes_below);
+        if (h && dst < capacity) {
+          e_idx[dst] = row;
+          q_idx[dst] = q0 + k;
+          t_enter[dst] = a;
+          t_exit[dst] = b;
+        }
+        before += __popc(m);
+      }
     }
   }
 }
@@ -277,6 +415,45 @@ __global__ void distthresh_compact_live_kernel(
                t_enter, t_exit, count);
 }
 
+template <bool kPrune>
+__global__ void distthresh_compact_rowloop_kernel(
+    const float* __restrict__ entries, int C, const float* __restrict__ qT,
+    long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
+    int valid_q, int capacity, int ntq, const float* __restrict__ e_mbr,
+    const float* __restrict__ q_mbr, float d_prune, int* __restrict__ e_idx,
+    int* __restrict__ q_idx, float* __restrict__ t_enter,
+    float* __restrict__ t_exit, int* __restrict__ count,
+    int* __restrict__ pruned) {
+  const int ti = blockIdx.x / ntq;
+  const int tj = blockIdx.x % ntq;
+  if (kPrune) {
+    __shared__ int s_live;
+    if (threadIdx.x == 0) {
+      s_live = tile_mbr_live(e_mbr + 8 * ti, q_mbr + 8 * tj, d_prune);
+      if (!s_live) atomicAdd(pruned, 1);
+    }
+    __syncthreads();
+    if (!s_live) return;
+  }
+  rowloop_tile(ti, tj, entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c,
+               valid_q, capacity, e_idx, q_idx, t_enter, t_exit, count);
+}
+
+__global__ void distthresh_compact_live_rowloop_kernel(
+    const float* __restrict__ entries, int C, const float* __restrict__ qT,
+    long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
+    int valid_q, int capacity, const int* __restrict__ tile_i,
+    const int* __restrict__ tile_j, const int* __restrict__ n_live,
+    int* __restrict__ e_idx, int* __restrict__ q_idx,
+    float* __restrict__ t_enter, float* __restrict__ t_exit,
+    int* __restrict__ count) {
+  const int slot = blockIdx.x;
+  if (slot >= *n_live) return;
+  rowloop_tile(tile_i[slot], tile_j[slot], entries, C, qT, ldq, Q, d,
+               cand_blk, qry_blk, valid_c, valid_q, capacity, e_idx, q_idx,
+               t_enter, t_exit, count);
+}
+
 __global__ void distthresh_dense_kernel(const float* __restrict__ entries,
                                         int C, const float* __restrict__ qT,
                                         long long ldq, int Q, float d,
@@ -299,6 +476,12 @@ __global__ void distthresh_dense_kernel(const float* __restrict__ entries,
 }
 
 int round_up_warp(int n) { return (n + 31) / 32 * 32; }
+
+// Row-loop blocks: one warp per row in flight, at most 8 warps.
+int rowloop_threads(int cand_blk) {
+  const int t = round_up_warp(cand_blk);
+  return t < 256 ? t : 256;
+}
 
 }  // namespace
 
@@ -352,6 +535,46 @@ int distthresh_compact_live_launch(const float* entries, int C,
   const int threads = round_up_warp(cand_blk);
   distthresh_compact_live_kernel<<<n_slots, threads, smem,
                                    (cudaStream_t)stream>>>(
+      entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
+      capacity, tile_i, tile_j, n_live, e_idx, q_idx, t_enter, t_exit, count);
+  return (int)cudaGetLastError();
+}
+
+int distthresh_compact_rowloop_launch(
+    const float* entries, int C, const float* qT, long long ldq, int Q,
+    float d, int cand_blk, int qry_blk, int valid_c, int valid_q,
+    int capacity, const float* e_mbr, const float* q_mbr, float d_prune,
+    int* e_idx, int* q_idx, float* t_enter, float* t_exit, int* count,
+    int* pruned, void* stream) {
+  const int ntc = (C + cand_blk - 1) / cand_blk;
+  const int ntq = (Q + qry_blk - 1) / qry_blk;
+  const size_t smem = sizeof(float) * 8 * (size_t)qry_blk;
+  const int threads = rowloop_threads(cand_blk);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (e_mbr != nullptr) {
+    distthresh_compact_rowloop_kernel<true><<<ntc * ntq, threads, smem, s>>>(
+        entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
+        capacity, ntq, e_mbr, q_mbr, d_prune, e_idx, q_idx, t_enter, t_exit,
+        count, pruned);
+  } else {
+    distthresh_compact_rowloop_kernel<false><<<ntc * ntq, threads, smem, s>>>(
+        entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
+        capacity, ntq, nullptr, nullptr, 0.0f, e_idx, q_idx, t_enter, t_exit,
+        count, pruned);
+  }
+  return (int)cudaGetLastError();
+}
+
+int distthresh_compact_live_rowloop_launch(
+    const float* entries, int C, const float* qT, long long ldq, int Q,
+    float d, int cand_blk, int qry_blk, int valid_c, int valid_q,
+    int capacity, const int* tile_i, const int* tile_j, const int* n_live,
+    int n_slots, int* e_idx, int* q_idx, float* t_enter, float* t_exit,
+    int* count, void* stream) {
+  const size_t smem = sizeof(float) * 8 * (size_t)qry_blk;
+  distthresh_compact_live_rowloop_kernel<<<n_slots,
+                                           rowloop_threads(cand_blk), smem,
+                                           (cudaStream_t)stream>>>(
       entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
       capacity, tile_i, tile_j, n_live, e_idx, q_idx, t_enter, t_exit, count);
   return (int)cudaGetLastError();

@@ -1,15 +1,15 @@
 """Distance-threshold kernels for Hopper: wrappers and plain versions.
 
-Three hand-written CUDA kernels (``csrc/distthresh.cu``) replace the
+Five hand-written CUDA kernels (``csrc/distthresh.cu``) replace the
 reference's Pallas TPU kernels in ``repro/kernels/distthresh.py``:
 
-==========================  ===========================================
-wrapper                     replaces
-==========================  ===========================================
-:func:`distthresh_compact`   ``distthresh_compact_pallas(append="chunk")``
-:func:`distthresh_compact_live`  ``distthresh_compact_live_pallas``
-:func:`distthresh_dense`     ``distthresh_pallas``
-==========================  ===========================================
+* :func:`distthresh_compact` replaces ``distthresh_compact_pallas``:
+  ``append="chunk"`` launches ``distthresh_compact``, ``append="rowloop"``
+  ``distthresh_compact_rowloop`` (the ``LAUNCHES`` keys);
+* :func:`distthresh_compact_live` replaces
+  ``distthresh_compact_live_pallas``: ``distthresh_compact_live`` and
+  ``distthresh_compact_live_rowloop``;
+* :func:`distthresh_dense` replaces ``distthresh_pallas``.
 
 Each wrapper keeps its counterpart's signature and return tuple, plus
 ``device=`` (default ``"cuda"``, resolved as every entry point resolves
@@ -23,16 +23,20 @@ Two things differ from the TPU kernels, neither visible in the results:
 
 * The TPU grid ran in order, so its running hit counter gave one fixed
   row order.  Hopper blocks run in parallel and append with one
-  ``atomicAdd`` per tile (the paper's §5 ``atomic_inc``): rows stay
-  row-major inside a tile, but the order of tiles changes from run to
-  run.  The plain versions emit the TPU's order (tiles in grid order,
-  query tiles innermost).  Consumers sort canonically.
+  ``atomicAdd`` per tile (the paper's §5 ``atomic_inc``; one per entry
+  row for ``append="rowloop"``): hits stay row-major inside a tile (in
+  column order inside a row), but the order of tiles (rows) changes from
+  run to run.  The plain versions emit the TPU's order (tiles in grid
+  order, query tiles innermost, row-major inside a tile), which both
+  append modes give on the TPU.  Consumers sort canonically.
 * The kernels mask rows ``>= valid_c`` and columns ``>= valid_q``
   themselves and take any ``C``/``Q``: no pad rows are needed, and a
   ragged last tile is simply shorter.  ``queries_t`` may be a column
   slice of a larger (8, N) array (its rows need unit stride only).
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -47,10 +51,23 @@ DEFAULT_QRY_BLK = 256
 #: thread count, and ``qry_blk`` sizes its shared-memory query stage.
 MAX_BLK = 1024
 
-#: Kernel launches per wrapper; a plain integer bumped only where the
-#: wrapper launches its CUDA kernel.  Reset by assigning 0.
+#: append modes of the fused compaction wrappers (the reference's
+#: ``APPEND_MODES``).
+APPEND_MODES = ("chunk", "rowloop")
+
+#: Kernel launches per CUDA kernel; a plain integer bumped only where a
+#: wrapper launches that kernel.  Reset by assigning 0.
 LAUNCHES = {"distthresh_dense": 0, "distthresh_compact": 0,
-            "distthresh_compact_live": 0}
+            "distthresh_compact_live": 0, "distthresh_compact_rowloop": 0,
+            "distthresh_compact_live_rowloop": 0}
+#: Serializes the increments: the scheduler and the broker dispatch from
+#: several threads.
+_launch_lock = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 # ----------------------------------------------------------------------
@@ -150,7 +167,7 @@ def distthresh_dense(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
             _ptr(entries), c, _ptr(queries_t), ldq, q, float(np.float32(d)),
             _ptr(t_enter), _ptr(t_exit), _ptr(hit), _stream(dev))
         _raise_on(err, "distthresh_dense")
-        LAUNCHES["distthresh_dense"] += 1
+        _count_launch("distthresh_dense")
     return t_enter, t_exit, hit
 
 
@@ -172,7 +189,7 @@ def distthresh_compact(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
                        valid_c: int | None = None, valid_q: int | None = None,
                        e_mbr: torch.Tensor | None = None,
                        q_mbr: torch.Tensor | None = None, d_prune=None,
-                       device="cuda"):
+                       append: str = "chunk", device="cuda"):
     """Fused distance-threshold kernel with in-kernel result compaction.
 
     Args:
@@ -189,11 +206,15 @@ def distthresh_compact(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
         ``(lo_xyz, hi_xyz, 0, 0)``, ``q_mbr`` the same per query tile; a
         tile whose boxes lie farther apart than ``d_prune`` is skipped and
         counted in ``pruned``.
+      append: ``"chunk"`` (one block per tile, a block scan and one
+        atomic per tile) or ``"rowloop"`` (one warp per entry row, one
+        atomic per row); the same rows, the same counters.
 
     Returns ``(entry_idx, query_idx, t_enter, t_exit, count, pruned)``:
     four (capacity,) buffers (int32 -1 pad, float32 0 pad) and two 0-dim
     int32 counters.
     """
+    _check_append(append)
     prune = e_mbr is not None
     if (q_mbr is None) == prune or (d_prune is None) == prune:
         raise ValueError("e_mbr, q_mbr and d_prune must be given together "
@@ -206,24 +227,34 @@ def distthresh_compact(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
         _check_mbr(e_mbr, ntc, entries.device, "e_mbr")
         _check_mbr(q_mbr, ntq, entries.device, "q_mbr")
     if not _kernel_target(entries, device):
-        return distthresh_compact_plain(
-            entries, queries_t, d, capacity=capacity, cand_blk=cand_blk,
-            qry_blk=qry_blk, valid_c=valid_c, valid_q=valid_q, e_mbr=e_mbr,
-            q_mbr=q_mbr, d_prune=d_prune)
+        plain = (distthresh_compact_rowloop_plain if append == "rowloop"
+                 else distthresh_compact_plain)
+        return plain(entries, queries_t, d, capacity=capacity,
+                     cand_blk=cand_blk, qry_blk=qry_blk, valid_c=valid_c,
+                     valid_q=valid_q, e_mbr=e_mbr, q_mbr=q_mbr,
+                     d_prune=d_prune)
     ldq = _layout(entries, queries_t)
     dev = entries.device
     outs = _compact_outputs(capacity, dev)
     if ntc and ntq:
         from repro_torch.kernels import _build
-        err = _build.load().distthresh_compact_launch(
+        name = ("distthresh_compact_rowloop" if append == "rowloop"
+                else "distthresh_compact")
+        err = getattr(_build.load(), name + "_launch")(
             _ptr(entries), c, _ptr(queries_t), ldq, q, float(np.float32(d)),
             cand_blk, qry_blk, valid_c, valid_q, capacity,
             _ptr(e_mbr), _ptr(q_mbr),
             float(np.float32(d_prune)) if prune else 0.0,
             *(_ptr(t) for t in outs), _stream(dev))
-        _raise_on(err, "distthresh_compact")
-        LAUNCHES["distthresh_compact"] += 1
+        _raise_on(err, name)
+        _count_launch(name)
     return outs
+
+
+def _check_append(append: str) -> None:
+    if append not in APPEND_MODES:
+        raise ValueError(f"unknown append mode {append!r}; "
+                         f"choose from {APPEND_MODES}")
 
 
 def _check_mbr(mbr: torch.Tensor, n: int, device, what: str) -> None:
@@ -240,16 +271,18 @@ def distthresh_compact_live(entries: torch.Tensor, queries_t: torch.Tensor,
                             cand_blk: int = DEFAULT_CAND_BLK,
                             qry_blk: int = DEFAULT_QRY_BLK,
                             valid_c: int | None = None,
-                            valid_q: int | None = None, device="cuda"):
+                            valid_q: int | None = None,
+                            append: str = "chunk", device="cuda"):
     """Fused compaction over a precomputed live-tile list.
 
     ``tile_i`` / ``tile_j`` are (S,) int32 entry- and query-tile ids in
     grid order (query tiles innermost); slots at or past ``n_live`` ((1,)
     int32, read on the device) are skipped.  The CUDA kernel runs one
-    block per slot.  Returns ``(entry_idx, query_idx, t_enter, t_exit,
-    count)`` — no ``pruned`` counter: the caller knows
-    ``num_tiles - n_live``.
+    block per slot; ``append`` is as in :func:`distthresh_compact`.
+    Returns ``(entry_idx, query_idx, t_enter, t_exit, count)`` — no
+    ``pruned`` counter: the caller knows ``num_tiles - n_live``.
     """
+    _check_append(append)
     c, q = _check_inputs(entries, queries_t, cand_blk, qry_blk)
     valid_c = _valid(valid_c, c, "valid_c")
     valid_q = _valid(valid_q, q, "valid_q")
@@ -264,22 +297,25 @@ def distthresh_compact_live(entries: torch.Tensor, queries_t: torch.Tensor,
         raise ValueError(f"tile_j must be ({n_slots},) and n_live (1,), got "
                          f"{tuple(tile_j.shape)} / {tuple(n_live.shape)}")
     if not _kernel_target(entries, device):
-        return distthresh_compact_live_plain(
-            entries, queries_t, d, tile_i, tile_j, n_live, capacity=capacity,
-            cand_blk=cand_blk, qry_blk=qry_blk, valid_c=valid_c,
-            valid_q=valid_q)
+        plain = (distthresh_compact_live_rowloop_plain if append == "rowloop"
+                 else distthresh_compact_live_plain)
+        return plain(entries, queries_t, d, tile_i, tile_j, n_live,
+                     capacity=capacity, cand_blk=cand_blk, qry_blk=qry_blk,
+                     valid_c=valid_c, valid_q=valid_q)
     ldq = _layout(entries, queries_t)
     dev = entries.device
     outs = _compact_outputs(capacity, dev)[:5]
     if n_slots and c and q:
         from repro_torch.kernels import _build
-        err = _build.load().distthresh_compact_live_launch(
+        name = ("distthresh_compact_live_rowloop" if append == "rowloop"
+                else "distthresh_compact_live")
+        err = getattr(_build.load(), name + "_launch")(
             _ptr(entries), c, _ptr(queries_t), ldq, q, float(np.float32(d)),
             cand_blk, qry_blk, valid_c, valid_q, capacity,
             _ptr(tile_i), _ptr(tile_j), _ptr(n_live), n_slots,
             *(_ptr(t) for t in outs), _stream(dev))
-        _raise_on(err, "distthresh_compact_live")
-        LAUNCHES["distthresh_compact_live"] += 1
+        _raise_on(err, name)
+        _count_launch(name)
     return outs
 
 
@@ -382,9 +418,32 @@ def distthresh_compact_live_plain(entries: torch.Tensor,
                             cand_blk, qry_blk)
 
 
+def distthresh_compact_rowloop_plain(entries: torch.Tensor,
+                                     queries_t: torch.Tensor, d, **kw):
+    """Plain PyTorch version of :func:`distthresh_compact` with
+    ``append="rowloop"``.  The TPU's row loop appends the rows its chunk
+    append gives, in the same grid order (its docstring: same results,
+    same determinism), so the two plain versions share one body;
+    arguments as :func:`distthresh_compact_plain`."""
+    return distthresh_compact_plain(entries, queries_t, d, **kw)
+
+
+def distthresh_compact_live_rowloop_plain(entries: torch.Tensor,
+                                          queries_t: torch.Tensor, d,
+                                          tile_i: torch.Tensor,
+                                          tile_j: torch.Tensor,
+                                          n_live: torch.Tensor, **kw):
+    """Plain PyTorch version of :func:`distthresh_compact_live` with
+    ``append="rowloop"`` (rows as the chunk append's; see
+    :func:`distthresh_compact_rowloop_plain`)."""
+    return distthresh_compact_live_plain(entries, queries_t, d, tile_i,
+                                         tile_j, n_live, **kw)
+
+
 __all__ = [
-    "DEFAULT_CAND_BLK", "DEFAULT_QRY_BLK", "LAUNCHES", "MAX_BLK",
-    "distthresh_compact", "distthresh_compact_live",
-    "distthresh_compact_live_plain", "distthresh_compact_plain",
+    "APPEND_MODES", "DEFAULT_CAND_BLK", "DEFAULT_QRY_BLK", "LAUNCHES",
+    "MAX_BLK", "distthresh_compact", "distthresh_compact_live",
+    "distthresh_compact_live_plain", "distthresh_compact_live_rowloop_plain",
+    "distthresh_compact_plain", "distthresh_compact_rowloop_plain",
     "distthresh_dense", "distthresh_dense_plain",
 ]

@@ -8,20 +8,22 @@ The port's counterpart of ``repro/kernels/ops.py``:
   compaction into fixed-capacity buffers, with the exact hit count so the
   caller can detect overflow and retry larger (paper §5).
 
-``query_block`` has two compaction strategies (``compaction=``):
+``query_block`` has three compaction strategies (``compaction=``):
 
 * ``"fused"`` (default) — hits are compacted inside the kernel
   (:func:`~repro_torch.kernels.distthresh.distthresh_compact`): each tile
   appends its hits at an atomically claimed offset.  Non-hits never reach
   device memory.
+* ``"fused_rowloop"`` — the same, through the row-loop kernels
+  (``append="rowloop"``): one warp per entry row, each row appending at
+  its own atomically claimed offset.
 * ``"dense"`` — the two-phase path (and the only one for the torch
   oracle): phase 1 materializes the dense hit mask, phase 2 compacts it
   with a cumsum and a scatter and recomputes the intervals of the
   compacted hits.
 
-``"fused_rowloop"`` is accepted by name but raises
-``NotImplementedError``: its kernel is still to be ported.  Unlike the
-reference, no strategy falls back to another.
+Unlike the reference, no strategy falls back to another: the reference's
+automatic fused → fused_rowloop lowering fallback has no counterpart.
 
 The strategies emit different row orders (and the fused kernel's order of
 tiles varies between runs); consumers sort canonically.  The kernels mask
@@ -39,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch.core.index import mbr_gap2, prune_limit
 from repro_torch.device import resolve_device
 from repro_torch.kernels import distthresh as _dt
@@ -260,7 +263,8 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
     only when the host test finds at least one skippable tile pair;
     ``pruning="hierarchical"`` dispatches the host-built live-tile list
     through the live-tile kernel (and no kernel at all when every tile is
-    dead).  Neither changes the result set.
+    dead).  Neither changes the result set.  ``compaction="fused_rowloop"``
+    takes the same routes through the row-loop kernels.
     """
     if compaction not in COMPACTIONS:
         raise ValueError(f"unknown compaction {compaction!r}; "
@@ -268,11 +272,10 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
     if pruning not in PRUNINGS:
         raise ValueError(f"unknown pruning {pruning!r}; "
                          f"choose from {PRUNINGS}")
-    if use_kernel and compaction == "fused_rowloop":
-        raise NotImplementedError(
-            "compaction='fused_rowloop' has no Hopper kernel yet (ROADMAP "
-            "queue B: the row-loop append of distthresh_compact_pallas); use "
-            "'fused' or 'dense'")
+    if faults.armed():
+        faults.inject("ops.query_block", compaction=compaction,
+                      pruning=pruning, use_kernel=use_kernel,
+                      rows=int(entries.shape[0]))
     dev = resolve_device(device)
     c, q = entries.shape[0], queries.shape[0]
     if c == 0 or q == 0:
@@ -283,20 +286,22 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
     if e_dev.device != dev or q_dev.device != dev:
         raise ValueError(f"resident inputs on {e_dev.device}/{q_dev.device}, "
                          f"not on {dev}")
-    if use_kernel and compaction == "fused":
+    if use_kernel and compaction != "dense":
         return _fused(entries, queries, e_dev, q_dev, d, capacity=capacity,
-                      cand_blk=cand_blk, qry_blk=qry_blk, pruning=pruning)
+                      cand_blk=cand_blk, qry_blk=qry_blk, pruning=pruning,
+                      append="rowloop" if compaction == "fused_rowloop"
+                      else "chunk")
     return _dense(e_dev, q_dev, d, capacity=capacity, use_kernel=use_kernel,
                   cand_blk=cand_blk, qry_blk=qry_blk)
 
 
 def _fused(entries, queries, e_dev, q_dev, d, *, capacity, cand_blk, qry_blk,
-           pruning) -> dict:
+           pruning, append) -> dict:
     c, q = entries.shape[0], queries.shape[0]
     dev = e_dev.device
     num_tiles = (-(-c // cand_blk)) * (-(-q // qry_blk))
     kw = dict(capacity=capacity, cand_blk=cand_blk, qry_blk=qry_blk,
-              valid_c=c, valid_q=q, device=dev)
+              valid_c=c, valid_q=q, append=append, device=dev)
     if pruning == "hierarchical":
         prep = _host_live_tiles(entries, queries, d, cand_blk, qry_blk)
         if prep is not None:

@@ -152,8 +152,8 @@ def test_caller_order_and_validation(pairs):
     assert set(inv[base.query_idx]) == set(res.query_idx)
     with pytest.raises(ValueError, match="threshold"):
         tdb.query(queries, -1.0)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        tdb.query(queries, tdb.scenario_d, compaction="fused_rowloop")
+    assert_same_result(tdb.query(queries, tdb.scenario_d,
+                                 compaction="fused_rowloop"), base)
     assert len(tdb.query(queries.take(np.s_[0:0]), 1.0)) == 0
 
 

@@ -31,7 +31,11 @@ def test_port_has_modules():
     names = {_module_name(p) for p in PORT_FILES}
     assert {"repro_torch.api", "repro_torch.kernels.distthresh",
             "repro_torch.kernels.ops", "repro_torch.core.engine",
-            "repro_torch.core.executor", "repro_torch.state"} <= names
+            "repro_torch.core.executor", "repro_torch.state",
+            "repro_torch.faults", "repro_torch.core.perfmodel",
+            "repro_torch.core.scheduler", "repro_torch.serve",
+            "repro_torch.serve.broker", "repro_torch.serve.cache",
+            "repro_torch.serve.retry", "repro_torch.serve.trajectory"} <= names
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -76,6 +80,7 @@ def test_source_imports_neither_jax_nor_repro(path):
 def _entry_points():
     from repro_torch import resolve_device
     from repro_torch.api import TrajectoryDB
+    from repro_torch.core import perfmodel
     from repro_torch.core.engine import DistanceThresholdEngine, brute_force
     from repro_torch.core.segments import SegmentArray
     from repro_torch.kernels import distthresh as dt
@@ -102,6 +107,16 @@ def _entry_points():
             e, e.T, 1.0, torch.zeros(1, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32),
             torch.ones(1, dtype=torch.int32), capacity=8),
+        "distthresh_compact_rowloop": lambda: dt.distthresh_compact(
+            e, e.T, 1.0, capacity=8, append="rowloop"),
+        "distthresh_compact_live_rowloop": lambda: dt.distthresh_compact_live(
+            e, e.T, 1.0, torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32), capacity=8, append="rowloop"),
+        "query_block_rowloop": lambda: ops.query_block(
+            packed, packed, 1.0, capacity=8, compaction="fused_rowloop"),
+        "benchmark_device_curves": lambda: perfmodel.benchmark_device_curves(
+            c_values=(8, 16), q_values=(8, 16), repeats=1),
     }
 
 

@@ -5,7 +5,8 @@ the reference on the same inputs (made from a numpy seed).
   IEEE float32 operation at a time in the same order, so the outputs are
   required to be **equal**, bit for bit.
 * Each ``*_plain`` vs its Pallas kernel run in interpret mode at
-  ``cand_blk = qry_blk ∈ {8, 16}``, as ``tests/test_kernels.py`` runs them.
+  ``cand_blk = qry_blk ∈ {8, 16}``, as ``tests/test_kernels.py`` runs them;
+  the row-loop twins against ``append="rowloop"``.
   Hit sets, counts, ``pruned`` and the row order (the plain versions emit
   the TPU kernels' grid order) are exact.  Intervals are compared with
   ``rtol=1e-5, atol=1e-4``: XLA fuses the interpret-mode solve and may
@@ -145,12 +146,16 @@ def _assert_rows_equal(got, want, n):
     assert int(got[4]) == int(want[4]) == n
 
 
+APPENDS = ["chunk", "rowloop"]
+
+
+@pytest.mark.parametrize("append", APPENDS)
 @pytest.mark.parametrize("blk", [8, 16])
 @pytest.mark.parametrize("capacity", [4096, 5], ids=["ample", "overflow"])
-def test_compact_plain_equals_pallas(blk, capacity):
+def test_compact_plain_equals_pallas(blk, capacity, append):
     e, q, d, c, nq = _padded(blk, 7 * blk, 64, 48)
     kw = dict(capacity=capacity, cand_blk=blk, qry_blk=blk, valid_c=c,
-              valid_q=nq)
+              valid_q=nq, append=append)
     got = dt.distthresh_compact(_t(e), _t(q.T), d, device=CPU, **kw)
     want = jdt.distthresh_compact_pallas(e, q.T, d, **kw)
     n = int(want[4])
@@ -181,11 +186,12 @@ def _clustered(blk: int):
     return e, qq, np.float32(4.0)
 
 
+@pytest.mark.parametrize("append", APPENDS)
 @pytest.mark.parametrize("blk", [8, 16])
-def test_compact_plain_armed_equals_pallas(blk):
+def test_compact_plain_armed_equals_pallas(blk, append):
     e, q, d = _clustered(blk)
     e_mbr, q_mbr, d_prune = ops._host_tile_prune(e, q, d, blk, blk)
-    kw = dict(capacity=4096, cand_blk=blk, qry_blk=blk)
+    kw = dict(capacity=4096, cand_blk=blk, qry_blk=blk, append=append)
     got = dt.distthresh_compact(_t(e), _t(q.T), d, e_mbr=_t(e_mbr),
                                 q_mbr=_t(q_mbr), d_prune=d_prune, device=CPU,
                                 **kw)
@@ -196,14 +202,15 @@ def test_compact_plain_armed_equals_pallas(blk):
     assert int(got[5]) == int(want[5]) > 0        # tiles were pruned
 
 
+@pytest.mark.parametrize("append", APPENDS)
 @pytest.mark.parametrize("blk", [8, 16])
 @pytest.mark.parametrize("capacity", [4096, 9], ids=["ample", "overflow"])
-def test_compact_live_plain_equals_pallas(blk, capacity):
+def test_compact_live_plain_equals_pallas(blk, capacity, append):
     e, q, d = _clustered(blk)
     tile_i, tile_j, n_live, num_tiles = ops._host_live_tiles(e, q, d, blk,
                                                              blk)
     assert 0 < int(n_live[0]) < num_tiles
-    kw = dict(capacity=capacity, cand_blk=blk, qry_blk=blk)
+    kw = dict(capacity=capacity, cand_blk=blk, qry_blk=blk, append=append)
     got = dt.distthresh_compact_live(_t(e), _t(q.T), d, _t(tile_i),
                                      _t(tile_j), _t(n_live), device=CPU, **kw)
     want = jdt.distthresh_compact_live_pallas(e, q.T, d, tile_i, tile_j,
@@ -213,10 +220,11 @@ def test_compact_live_plain_equals_pallas(blk, capacity):
     _assert_rows_equal(got, want, n)
 
 
-def test_degenerate_cases_through_compact():
+@pytest.mark.parametrize("append", APPENDS)
+def test_degenerate_cases_through_compact(append):
     e, q = _degenerate()
     d = np.float32(2.0)
-    kw = dict(capacity=64, cand_blk=8, qry_blk=8)
+    kw = dict(capacity=64, cand_blk=8, qry_blk=8, append=append)
     got = dt.distthresh_compact(_t(e), _t(q.T), d, device=CPU, **kw)
     want = jdt.distthresh_compact_pallas(e, q.T, d, **kw)
     _assert_rows_equal(got, want, int(want[4]))
@@ -246,7 +254,7 @@ def _canon(out):
             _np(out["t_enter"])[keep][order], _np(out["t_exit"])[keep][order])
 
 
-@pytest.mark.parametrize("compaction", ["fused", "dense"])
+@pytest.mark.parametrize("compaction", ["fused", "fused_rowloop", "dense"])
 @pytest.mark.parametrize("pruning", ["none", "spatial", "hierarchical"])
 def test_query_block_equals_reference(compaction, pruning):
     e, q, d = _clustered(16)
@@ -278,11 +286,27 @@ def test_query_block_torch_oracle_equals_jnp():
             np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
 
 
-def test_fused_rowloop_has_no_kernel_yet():
-    e, q, d = _random(0, 8, 8)
-    with pytest.raises(NotImplementedError, match="queue B"):
-        ops.query_block(e, q, d, capacity=8, device=CPU,
-                        compaction="fused_rowloop")
+def test_rowloop_twins_are_their_own_functions(monkeypatch):
+    """On the CPU ``append="rowloop"`` runs the row-loop twins (so the card
+    can hold each row-loop kernel against its own plain version), and
+    ``compaction="fused_rowloop"`` reaches them through ``query_block``."""
+    calls = []
+    for name in ("distthresh_compact_rowloop_plain",
+                 "distthresh_compact_live_rowloop_plain"):
+        fn = getattr(dt, name)
+        monkeypatch.setattr(dt, name, lambda *a, _f=fn, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    e, q, d = _clustered(8)
+    for pruning in ("spatial", "hierarchical"):
+        ops.query_block(e, q, d, capacity=256, cand_blk=8, qry_blk=8,
+                        device=CPU, compaction="fused_rowloop",
+                        pruning=pruning)
+    assert calls == ["distthresh_compact_rowloop_plain",
+                     "distthresh_compact_live_rowloop_plain"]
+    assert all(v == 0 for v in dt.LAUNCHES.values())
+    with pytest.raises(ValueError, match="append"):
+        dt.distthresh_compact(_t(e), _t(q.T), d, capacity=8, append="x",
+                              device=CPU)
 
 
 def test_empty_inputs():
