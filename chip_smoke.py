@@ -9,8 +9,12 @@ CUDA toolkit::
 Phases, each printing one JSON line (``"phase": ...``):
 
 1. device  — the card as torch and ``nvidia-smi`` name it, power limit.
-2. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu``.
-3. kernels — each kernel against its plain PyTorch version on the card, on
+2. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu`` (one
+   compile per source, all at once; ``ptxas`` registers and spills).
+3. kernels — each kernel against its plain PyTorch version on the card.
+   The flash kernel (``FLASH_TOL``): head dims 16/32/64/128, g 1 and 4,
+   S = T = 77 and 1,000, S = 45 < T = 333, float32 and bf16.  The
+   distance kernels: on
    seeded random tiles with the degenerate cases (zero-length extent, zero
    relative velocity, tangent roots, disjoint intervals), at 256×256,
    64×32, 40×24 and 32×320 tiles (the row-loop kernels' register and
@@ -46,10 +50,20 @@ Phases, each printing one JSON line (``"phase": ...``):
    time and served under one above it (phase fit).
 7. stream  — ``db.query_stream(backend="kernel")`` on S1 at scale 0.3
    against ``db.query``.
-8. timing  — each kernel's time on the largest dispatch of the path its
+8. llm     — LLM serving: granite-3-2b at full width and depth (40
+   layers, bf16, seeded random weights made on the card) through
+   ``ServeEngine.generate``: 8 seeded prompts of 64 to 1,000 tokens
+   (bucket 1024), 32 new tokens, run twice (equal outputs, every token
+   below the vocabulary size).  The run launches ``flashattn`` once per
+   layer of the prefill and never in decode.  The prefill's last logits
+   with the kernel are held against the same weights with the plain
+   version patched in (``LLM_LOGIT_ATOL``).
+9. timing  — each kernel's time on the largest dispatch of the path its
    launches are counted on (CUDA graph of repeated wrapper calls, so host
    overhead is excluded), its plain version's time, and its bound on this
-   card; the row-loop kernels at the shapes of their chunk twins.
+   card; the row-loop kernels at the shapes of their chunk twins; the
+   flash kernel at the llm phase's prefill shape, beside
+   ``scaled_dot_product_attention`` (``library_ms``, timed here only).
 
 Every ``backend="kernel"`` run sets the launch counters to 0 just before
 it and reads them just after (``kernel_path``, and per ticket in phase
@@ -80,9 +94,30 @@ K_RTOL, K_ATOL = 1e-6, 1e-5
 #: ill-conditioned near tangency.  Index columns are always exact.
 B_RTOL, B_ATOL = 1e-4, 1e-3
 
+#: Flash kernel against its plain version on the card, per dtype: both
+#: compute in float32 from the same inputs with sums in another order
+#: (about 1e-6 relative at T = 1,000 keys), so float32 outputs agree
+#: within 1e-5, and bf16 outputs, rounded once from those float32 values,
+#: by one bf16 step (2^-7 of the value), plus 1e-5 where a value near
+#: zero rounds at a finer step.  |a - b| <= rtol * max(|a|, |b|) + atol.
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+#: The llm phase's last-position logits, kernel against plain version:
+#: the two differ only where their float32 attention sums round to bf16
+#: differently (one step, on a few outputs per layer), and 40 layers of
+#: random-weight blocks carry that to the logits, whose magnitude is
+#: about 2 here.  0.25 is an eighth of that; a wrong kernel (a wrong mask,
+#: head or scale) moves them by the logits' own size.
+LLM_LOGIT_ATOL = 0.25
+#: ``scaled_dot_product_attention`` (timed as the flash kernel's
+#: yardstick) against the plain version: a sanity bound that it computes
+#: the same function on the same layout.
+LIBRARY_ATOL = 2.0 ** -4
+
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
-#: outside the tensor cores, and HBM3 bandwidth.
+#: outside the tensor cores, bf16 on the tensor cores, and HBM3
+#: bandwidth.
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 #: float32 operations of the kernels' interval solve (csrc/distthresh.cu:
@@ -92,7 +127,6 @@ PEAK_BYTES = 3.35e12
 OPS_PER_PAIR = 3
 OPS_PER_OVERLAP = 45
 
-SOURCE = "src/repro_torch/kernels/csrc/distthresh.cu"
 #: The TPU kernel (its ``pallas_call`` line) each CUDA kernel replaces;
 #: the row-loop kernels replace the same calls with ``append="rowloop"``.
 REPLACES = {
@@ -101,7 +135,13 @@ REPLACES = {
     "distthresh_compact_live": "src/repro/kernels/distthresh.py:782",
     "distthresh_compact_rowloop": "src/repro/kernels/distthresh.py:640",
     "distthresh_compact_live_rowloop": "src/repro/kernels/distthresh.py:782",
+    "flashattn": "src/repro/kernels/flashattn.py:84",
 }
+
+
+def source(name: str) -> str:
+    cu = "flashattn" if name == "flashattn" else "distthresh"
+    return f"src/repro_torch/kernels/csrc/{cu}.cu"
 
 
 def emit(obj) -> None:
@@ -113,6 +153,18 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes per compiled kernel, from ``ptxas -v``."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+            out[fn] = ""
+        elif fn and ("spill" in ln or "registers" in ln):
+            out[fn] += ln.split(":", 1)[-1].strip() + "; "
+    return out
 
 
 def check(cond, what: str) -> None:
@@ -259,6 +311,45 @@ def kernel_checks(dev) -> dict:
     return {"cases": cases, "max_abs_err": err}
 
 
+def flash_close(a, b, dtype) -> float:
+    """Max |a - b|, after checking ``FLASH_TOL``."""
+    rtol, atol = FLASH_TOL[dtype]
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    check(torch.isfinite(a).all().item(), "flashattn: non-finite output")
+    check((diff <= rtol * torch.maximum(a.abs(), b.abs()) + atol).all()
+          .item(), f"flashattn {dtype}: max |diff| {float(diff.max())}")
+    return float(diff.max())
+
+
+def flash_checks(dev) -> dict:
+    """The flash kernel against its plain version on seeded normal
+    inputs: every head dim, g 1 and 4, S = T ragged, S < T windowed,
+    float32 and bf16."""
+    from repro_torch.kernels import flashattn as fa
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    err, cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in fa.HEAD_DIMS:
+            for g in (1, 4):
+                for s, t in ((77, 77), (1000, 1000), (45, 333)):
+                    bkv = 2
+                    q = torch.randn((bkv * g, s, hd), generator=gen,
+                                    device=dev).to(dtype)
+                    k, v = (torch.randn((bkv, t, hd), generator=gen,
+                                        device=dev).to(dtype)
+                            for _ in range(2))
+                    got = fa.flashattn(q, k, v, g=g)
+                    check(got.dtype == dtype and got.shape == q.shape,
+                          "flashattn: output dtype or shape")
+                    err = max(err, flash_close(
+                        got, fa.flashattn_plain(q, k, v, g=g), dtype))
+                    cases += 1
+    torch.cuda.synchronize()
+    return {"cases": cases, "max_abs_err": err,
+            "tol": {str(k): v for k, v in FLASH_TOL.items()}}
+
+
 # ----------------------------------------------------------------------
 # Whole-path comparisons.
 # ----------------------------------------------------------------------
@@ -393,21 +484,16 @@ def main_path(dev, card):
     return db, res, counts, dense_counts
 
 
-def profile_main(db, card):
-    """One warm execution of the main path's plan (planning excluded)
-    under ``torch.profiler``: the device's busy share of the execution's
-    wall time, and device time by kernel / copy name."""
+def profiled(fn):
+    """Run ``fn()`` once under ``torch.profiler`` and synchronize: (wall
+    s, device busy s, device events, top device time by kernel / copy
+    name).  Busy is the union of the device intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    q, d = db.scenario_queries, db.scenario_d
-    plan = db.plan(q, d=d)
-    eng = db.engine("kernel")
-    eng.execute(q, d, plan)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, st = eng.execute(q, d, plan)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
@@ -426,11 +512,24 @@ def profile_main(db, card):
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return out, wall, busy * 1e-6, len(spans), {
+        k: {"n": n, "us": us} for k, (n, us) in top}
+
+
+def profile_main(db, card):
+    """One warm execution of the main path's plan (planning excluded)
+    under ``torch.profiler``: the device's busy share of the execution's
+    wall time, and device time by kernel / copy name."""
+    q, d = db.scenario_queries, db.scenario_d
+    plan = db.plan(q, d=d)
+    eng = db.engine("kernel")
+    eng.execute(q, d, plan)
+    torch.cuda.synchronize()
+    (_, st), wall, busy, _, top = profiled(lambda: eng.execute(q, d, plan))
     emit({"phase": "profile", "execute_wall_s": wall,
-          "device_busy_s": busy * 1e-6, "device_busy_share":
-          busy * 1e-6 / wall, "dispatch_s": st.dispatch_seconds,
-          "sync_s": st.sync_seconds, "device_us_by_name":
-          {k: {"n": n, "us": us} for k, (n, us) in top}, "card": card})
+          "device_busy_s": busy, "device_busy_share": busy / wall,
+          "dispatch_s": st.dispatch_seconds, "sync_s": st.sync_seconds,
+          "device_us_by_name": top, "card": card})
 
 
 def mode_matrix(dev, card):
@@ -707,6 +806,151 @@ def stream_path(dev, card):
 
 
 # ----------------------------------------------------------------------
+# LLM serving: granite-3-2b at full width and depth.
+# ----------------------------------------------------------------------
+LLM_ARCH, LLM_PROMPTS, LLM_NEW_TOKENS = "granite-3-2b", 8, 32
+
+
+def llm_path(dev, card):
+    """``ServeEngine.generate`` on granite-3-2b (40 layers, bf16, random
+    weights from a seeded generator on the card), run twice; then one
+    prefill and the decode steps timed on their own, and the prefill's
+    last logits with the plain attention patched in.  Returns the flash
+    launches of the first run and the prefill's flash-kernel shape."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flashattn as fa
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+    cfg = ARCHS[LLM_ARCH]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = T.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    norm_scales = (2 * cfg.num_layers + 1) * cfg.d_model
+    check(n_params - norm_scales == cfg.param_count(),
+          f"{n_params} parameters, {norm_scales} of them norm scales, "
+          f"against param_count() {cfg.param_count()}")
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1001, LLM_PROMPTS)
+    lens[0] = 1000                              # bucket 1024
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    s = engine._bucket(int(lens.max()))
+    check(s == 1024, f"bucket {s}")
+    eng = engine.ServeEngine(cfg, model, max_len=s + LLM_NEW_TOKENS,
+                             device=dev)
+    walls, outs = [], []
+    for _ in range(2):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.generate(prompts, LLM_NEW_TOKENS))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = {n: c for n, c in launches().items() if c}
+        check(counts == {"flashattn": cfg.num_layers},
+              f"generate launched {counts}; one flashattn per layer of "
+              f"the prefill and none in decode belong to it")
+        if len(walls) == 1:
+            gen_counts = counts
+    check(outs[0] == outs[1], "generate is not deterministic")
+    for p, o in zip(prompts, outs[0]):
+        check(o[:len(p)] == p and len(o) == len(p) + LLM_NEW_TOKENS,
+              "generate: prompt or length")
+        check(all(0 <= t < cfg.vocab_size for t in o[len(p):]),
+              "generate: a token outside the vocabulary")
+
+    # The prefill and the decode steps on their own, counted on their own.
+    toks = np.full((len(prompts), s), 0, np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, s - len(p):] = p
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    with torch.inference_mode():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(cfg, model, batch,
+                                  max_len=s + LLM_NEW_TOKENS, last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = launches()["flashattn"]
+        check(prefill_launches == cfg.num_layers,
+              f"prefill launched flashattn {prefill_launches} times")
+        last = logits[:, -1]
+        nxt = torch.argmax(last, dim=-1)
+        check(nxt.cpu().tolist() == [o[len(p)] for p, o in
+                                     zip(prompts, outs[0])],
+              "prefill's first token differs from generate's")
+        reset_launches()
+        t0 = time.perf_counter()
+        for i in range(LLM_NEW_TOKENS):
+            step, cache = T.decode_step(cfg, model, cache, nxt, s + i)
+            nxt = torch.argmax(step, dim=-1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        check(not any(launches().values()), "decode launched a kernel")
+        # One more decode step and one prefill under the profiler: device
+        # busy share and device work per call.
+        _, step_wall, step_busy, step_events, step_top = profiled(
+            lambda: T.decode_step(cfg, model, cache, nxt,
+                                  s + LLM_NEW_TOKENS - 1))
+        _, pre_wall, pre_busy, pre_events, pre_top = profiled(
+            lambda: T.prefill(cfg, model, batch, max_len=s, last_only=True))
+
+        # The same prefill with the plain attention in the model.
+        try:
+            attention.flashattn = fa.flashattn_plain
+            plain_logits, _ = T.prefill(cfg, model, batch, max_len=s,
+                                        last_only=True)
+        finally:
+            attention.flashattn = fa.flashattn
+        diff = float((plain_logits[:, -1] - last).abs().max())
+        agree = int((plain_logits[:, -1].argmax(-1) ==
+                     last.argmax(-1)).sum())
+    check(torch.isfinite(last).all().item(), "non-finite logits")
+    check(diff <= LLM_LOGIT_ATOL, f"prefill logits: kernel vs plain "
+          f"{diff} > {LLM_LOGIT_ATOL}")
+    b, kvh = len(prompts), cfg.num_kv_heads
+    g = cfg.num_heads // kvh
+    emit({"phase": "llm", "arch": LLM_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype,
+          "parameters": n_params, "param_count": cfg.param_count(),
+          "init_s": init_s, "prompts": len(prompts),
+          "prompt_tokens": [int(n) for n in lens], "bucket": s,
+          "new_tokens": LLM_NEW_TOKENS, "generate_wall_s": walls,
+          "prefill_s": prefill_s,
+          "prefill_tokens_per_s": b * s / prefill_s,
+          "decode_s": decode_s,
+          "decode_tokens_per_s": b * LLM_NEW_TOKENS / decode_s,
+          "profile": {
+              "decode_step": {"wall_s": step_wall, "device_busy_s":
+                              step_busy, "device_busy_share":
+                              step_busy / step_wall, "device_events":
+                              step_events, "device_us_by_name": step_top},
+              "prefill": {"wall_s": pre_wall, "device_busy_s": pre_busy,
+                          "device_busy_share": pre_busy / pre_wall,
+                          "device_events": pre_events,
+                          "device_us_by_name": pre_top}},
+          "launches_generate": gen_counts,
+          "launches_per_prefill": prefill_launches,
+          "launches_per_decode_step": 0,
+          "logits_max_abs_diff_vs_plain": diff,
+          "logits_atol": LLM_LOGIT_ATOL,
+          "argmax_agree": f"{agree}/{b}",
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "card": card})
+    shape = dict(bh=b * kvh * g, bkv=b * kvh, s=s, t=s,
+                 hd=cfg.resolved_head_dim, g=g, kv_heads=kvh,
+                 dtype=T._dtype(cfg))
+    return gen_counts["flashattn"], shape
+
+
+# ----------------------------------------------------------------------
 # Kernel timing at the main path's shapes.
 # ----------------------------------------------------------------------
 def graph_ms(fn, iters: int = 20, reps: int = 3) -> float:
@@ -760,8 +1004,8 @@ def pair_work(e, qt, tiles=None, cb=256, qb=256):
     return int(mask.sum()), int(((lo <= hi) & mask).sum())
 
 
-def bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -799,7 +1043,7 @@ def kernel_timing(dev, s1, c3, counts, card):
 
     def row(name, shape, err, ms, plain_ms, b, **extra):
         label, n = counts[name]
-        return {"name": name, "route": "cuda", "source": SOURCE,
+        return {"name": name, "route": "cuda", "source": source(name),
                 "replaces": REPLACES[name], "launches": n,
                 "launches_counted_on": label, "shape": shape, **extra,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -886,8 +1130,66 @@ def kernel_timing(dev, s1, c3, counts, card):
     emit({"phase": "timing", "card": card,
           "note": "ms: device time per wrapper call (its output fills "
                   "included), CUDA graph; plain_ms: CUDA events; "
-                  "library_ms: no single PyTorch call computes this join"})
+                  "library_ms: no single PyTorch call computes the join; "
+                  "for flashattn, scaled_dot_product_attention in a CUDA "
+                  "graph"})
     return table
+
+
+def flash_timing(dev, shape, n_launches):
+    """The flash kernel at the llm phase's prefill shape (seeded normal
+    inputs): kernel, plain version and ``scaled_dot_product_attention``
+    on the same tensors (SDPA is the yardstick only; the port never
+    calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flashattn as fa
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bh, bkv, s, t, hd, g = (shape[k] for k in ("bh", "bkv", "s", "t", "hd",
+                                                "g"))
+    dtype = shape["dtype"]
+    q = torch.randn((bh, s, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((bkv, t, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    err = flash_close(fa.flashattn(q, k, v, g=g),
+                      fa.flashattn_plain(q, k, v, g=g), dtype)
+    # SDPA layout: (batch, heads, S, hd) with KV heads grouped; the
+    # kernel's bh = (b·KVH + kvh)·g + j is head kvh·g + j of batch b.
+    # Its is_causal mask is aligned to the first key, the kernel's to the
+    # last: the two agree where S = T, as at the prefill.
+    check(s == t, f"S={s} != T={t}")
+    n_kv = shape["kv_heads"]
+    lib_q = q.view(bkv // n_kv, n_kv * g, s, hd)
+    lib_k, lib_v = (x.view(bkv // n_kv, n_kv, t, hd) for x in (k, v))
+    lib = F.scaled_dot_product_attention(lib_q, lib_k, lib_v, is_causal=True,
+                                         enable_gqa=True)
+    # SDPA rounds its probabilities to bf16 before the value product, so
+    # it is held to the same function only loosely (a wrong layout would
+    # miss by the outputs' own size).
+    lib_err = float((lib.reshape(bh, s, hd).float() -
+                     fa.flashattn_plain(q, k, v, g=g).float()).abs().max())
+    check(lib_err <= LIBRARY_ATOL, f"SDPA vs plain: {lib_err}")
+    ms = graph_ms(lambda: fa.flashattn(q, k, v, g=g))
+    plain_ms = event_ms(lambda: fa.flashattn_plain(q, k, v, g=g))
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        lib_q, lib_k, lib_v, is_causal=True, enable_gqa=True))
+    # Work this call needs: each query row i (at key position t - s + i)
+    # meets t - s + i + 1 keys; 2·hd flops for the score and 2·hd for the
+    # value product per (row, key) pair.
+    pairs = bh * sum(t - s + i + 1 for i in range(s))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b_ms, b_by = bound(nbytes, 4 * hd * pairs,
+                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    return {"name": "flashattn", "route": "cuda",
+            "source": source("flashattn"), "replaces": REPLACES["flashattn"],
+            "launches": n_launches, "launches_counted_on":
+            f"{LLM_ARCH} ServeEngine.generate ({LLM_PROMPTS} prompts, "
+            f"bucket {s}, {LLM_NEW_TOKENS} new tokens)",
+            "shape": {"bh": bh, "bkv": bkv, "s": s, "t": t, "hd": hd,
+                      "dtype": str(dtype)},
+            "max_abs_err": err, "library_max_abs_err": lib_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
 
 
 def main() -> int:
@@ -908,12 +1210,16 @@ def main() -> int:
     _build.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds,
-          "built": list(REPLACES)})
+          "built": list(REPLACES), "ptxas": {
+              src: ptxas_summary(log)
+              for src, log in _build.build_log.items()}})
 
     t0 = time.perf_counter()
     checks = kernel_checks(dev)
+    flash = flash_checks(dev)
+    checks["max_abs_err"]["flashattn"] = flash.pop("max_abs_err")
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "rtol": K_RTOL, "atol": K_ATOL, **checks})
+          "rtol": K_RTOL, "atol": K_ATOL, **checks, "flashattn": flash})
 
     s1, main_res, main_counts, dense_counts = main_path(dev, card)
     profile_main(s1, card)
@@ -921,6 +1227,7 @@ def main() -> int:
     ladder_counts, tickets = serve_path(s1, main_res, card)
     fit_path(s1, tickets, card)
     stream_path(dev, card)
+    flash_launches, flash_shape = llm_path(dev, card)
     c3_live = path_counts[("C3", "hierarchical/fused")]
     c3_live_rowloop = path_counts[("C3", "hierarchical/fused_rowloop")]
     counts = {
@@ -941,6 +1248,7 @@ def main() -> int:
             c3_live_rowloop["distthresh_compact_live_rowloop"])}
     by_name = {r["name"]: r for r in kernel_timing(dev, s1, dbs["C3"],
                                                      counts, card)}
+    by_name["flashattn"] = flash_timing(dev, flash_shape, flash_launches)
     table = [by_name[name] for name in REPLACES]
     torch.cuda.synchronize()
 

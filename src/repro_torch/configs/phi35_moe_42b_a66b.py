@@ -1,0 +1,10 @@
+"""Phi-3.5-MoE-instruct: 16-expert top-2 MoE, GQA kv=8.
+[hf:microsoft/Phi-3.5-MoE-instruct; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8,
+    head_dim=128, d_ff=6400, vocab_size=32_064,
+    num_experts=16, experts_per_token=2, mlp_type="swiglu",
+)

@@ -1,9 +1,11 @@
 """Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
-Each source is compiled by ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``; the library's name carries a hash of the
-sources and flags, so an edited source builds anew and an unchanged one is
-loaded from the build directory.  The build directory is ``build/kernels``
+Every source is compiled by its own ``nvcc``, all started together, and
+the objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``; the library's name carries a hash of the sources
+and flags, so an edited source builds anew and an unchanged one is loaded
+from the build directory.  ``-Xptxas -v`` makes each compile report its
+kernels' registers, shared memory and spills (kept in ``build_log``).  The build directory is ``build/kernels``
 at the root of the checkout (listed in ``.gitignore``), or
 ``$REPRO_TORCH_BUILD_DIR``.
 
@@ -28,7 +30,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -46,11 +48,16 @@ SIGNATURES["distthresh_compact_rowloop_launch"] = SIGNATURES[
     "distthresh_compact_launch"]
 SIGNATURES["distthresh_compact_live_rowloop_launch"] = SIGNATURES[
     "distthresh_compact_live_launch"]
+SIGNATURES["flashattn_launch"] = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                  _P)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 #: Seconds spent in nvcc by this process (0 when loaded from the cache).
 build_seconds = 0.0
+#: What the compiles printed (``-Xptxas -v``), per source; empty when the
+#: library was loaded from the cache.
+build_log: dict[str, str] = {}
 
 
 def build_dir() -> pathlib.Path:
@@ -79,7 +86,21 @@ def library_path() -> pathlib.Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return build_dir() / f"libdistthresh_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libkernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: dict[str, list[str]]) -> dict[str, str]:
+    """Run the commands at once; their output by name.  Raises on the
+    first that fails, after every one has ended."""
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, cmd in cmds.items()}
+    out = {name: p.communicate()[0] for name, p in procs.items()}
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmds[name])}\n{out[name]}")
+    return out
 
 
 def build() -> pathlib.Path:
@@ -90,15 +111,15 @@ def build() -> pathlib.Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = {src.name: os.path.join(tmp, src.stem + ".o")
+                for src in _sources()}
+        build_log.update(_run_all({
+            src.name: [nvcc(), *NVCC_FLAGS, "-c", str(src), "-o",
+                       objs[src.name]] for src in _sources()}))
+        lib = os.path.join(tmp, out.name)
+        _run_all({"link": [nvcc(), "-shared", "-o", lib, *objs.values()]})
+        os.replace(lib, out)
     build_seconds += time.perf_counter() - t0
     return out
 
@@ -117,4 +138,5 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-__all__ = ["NVCC_FLAGS", "build", "build_dir", "library_path", "load"]
+__all__ = ["NVCC_FLAGS", "build", "build_dir", "build_log",
+           "library_path", "load"]

@@ -36,13 +36,17 @@ Two things differ from the TPU kernels, neither visible in the results:
 """
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
+# LAUNCHES is this module's public name for the shared counters.
+from repro_torch.kernels._launch import LAUNCHES  # noqa: F401
+from repro_torch.kernels._launch import count_launch as _count_launch
+from repro_torch.kernels._launch import ptr as _ptr
+from repro_torch.kernels._launch import raise_on as _raise_on
+from repro_torch.kernels._launch import stream as _stream
 
 DEFAULT_CAND_BLK = 256
 DEFAULT_QRY_BLK = 256
@@ -54,20 +58,6 @@ MAX_BLK = 1024
 #: append modes of the fused compaction wrappers (the reference's
 #: ``APPEND_MODES``).
 APPEND_MODES = ("chunk", "rowloop")
-
-#: Kernel launches per CUDA kernel; a plain integer bumped only where a
-#: wrapper launches that kernel.  Reset by assigning 0.
-LAUNCHES = {"distthresh_dense": 0, "distthresh_compact": 0,
-            "distthresh_compact_live": 0, "distthresh_compact_rowloop": 0,
-            "distthresh_compact_live_rowloop": 0}
-#: Serializes the increments: the scheduler and the broker dispatch from
-#: several threads.
-_launch_lock = threading.Lock()
-
-
-def _count_launch(name: str) -> None:
-    with _launch_lock:
-        LAUNCHES[name] += 1
 
 
 # ----------------------------------------------------------------------
@@ -118,19 +108,6 @@ def _layout(entries: torch.Tensor, queries_t: torch.Tensor) -> int:
     if queries_t.shape[1] > 1 and queries_t.stride(1) != 1:
         raise ValueError("queries_t rows must have unit stride")
     return int(queries_t.stride(0))
-
-
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def _compact_outputs(capacity: int, device: torch.device):

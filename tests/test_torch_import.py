@@ -35,7 +35,13 @@ def test_port_has_modules():
             "repro_torch.faults", "repro_torch.core.perfmodel",
             "repro_torch.core.scheduler", "repro_torch.serve",
             "repro_torch.serve.broker", "repro_torch.serve.cache",
-            "repro_torch.serve.retry", "repro_torch.serve.trajectory"} <= names
+            "repro_torch.serve.retry", "repro_torch.serve.trajectory",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.granite_3_2b", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.transformer",
+            "repro_torch.models.convert", "repro_torch.kernels.flashattn",
+            "repro_torch.kernels._launch", "repro_torch.serve.engine",
+            "repro_torch.serve.batcher"} <= names
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -83,9 +89,15 @@ def _entry_points():
     from repro_torch.core import perfmodel
     from repro_torch.core.engine import DistanceThresholdEngine, brute_force
     from repro_torch.core.segments import SegmentArray
+    from repro_torch.configs import ARCHS
     from repro_torch.kernels import distthresh as dt
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flashattn import flashattn
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
 
+    cfg = ARCHS["granite-3-2b"].reduced()
+    qkv = torch.zeros((2, 4, 16)), torch.zeros((1, 4, 16))
     seg = SegmentArray(*(np.zeros(2, np.float32),) * 6,
                        np.zeros(2, np.float32), np.ones(2, np.float32),
                        np.arange(2), np.zeros(2))
@@ -117,6 +129,14 @@ def _entry_points():
             packed, packed, 1.0, capacity=8, compaction="fused_rowloop"),
         "benchmark_device_curves": lambda: perfmodel.benchmark_device_curves(
             c_values=(8, 16), q_values=(8, 16), repeats=1),
+        "flashattn": lambda: flashattn(qkv[0], qkv[1], qkv[1], g=2,
+                                       device="cuda"),
+        "init_params": lambda: transformer.init_params(
+            cfg, generator=torch.Generator()),
+        "LM": lambda: transformer.LM(cfg),
+        "init_cache": lambda: transformer.init_cache(cfg, 1, 8),
+        "ServeEngine": lambda: ServeEngine(
+            cfg, transformer.LM(cfg, device="cpu")),
     }
 
 
