@@ -10,15 +10,22 @@ Phases, each printing one JSON line (``"phase": ...``):
 
 1. device  — the card as torch and ``nvidia-smi`` name it, power limit.
 2. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu`` (one
-   compile per source, all at once; ``ptxas`` registers and spills).
+   compile per source, all at once; ``ptxas`` registers and spills), and
+   ``cuobjdump -sass`` counts each kernel's ``HGMMA`` and ``UTMALDG``
+   instructions (every bf16 flash instantiation must have both; null
+   where the toolkit has no ``cuobjdump``).
 3. kernels — each kernel against its plain PyTorch version on the card.
-   The flash kernel (``FLASH_TOL``): head dims 16/32/64/128, g 1 and 4,
-   S = T = 77 and 1,000, S = 45 < T = 333, float32 and bf16.  The
-   distance kernels: on
+   The flash kernels (``FLASH_TOL``): head dims 16/32/64/128, g 1 and 4,
+   S = T = 77 and 1,000, S = 45 < T = 333, float32 (the CUDA-core
+   kernel) and bf16 (the tensor-core kernel), and bf16 at the llm
+   phase's prefill shape.  The distance kernels: on
    seeded random tiles with the degenerate cases (zero-length extent, zero
    relative velocity, tangent roots, disjoint intervals), at 256×256,
    64×32, 40×24 and 32×320 tiles (the row-loop kernels' register and
-   recompute paths), with ample and overflowing capacity.  Hit sets, ``count``
+   recompute paths), with ample and overflowing capacity; and the chunk
+   kernels' sub-tiles (``SUBTILE_CASES``: S1's largest batch shape,
+   ragged tiles, an overflow inside a lone sub-tile, dead tiles armed).
+   Hit sets, ``count``
    and ``pruned`` must be exact; intervals agree within ``rtol=1e-6,
    atol=1e-5`` (same float32 operations in the same order, built with
    ``-fmad=false``; the atomic append changes only the row order, so rows
@@ -57,13 +64,16 @@ Phases, each printing one JSON line (``"phase": ...``):
    below the vocabulary size).  The run launches ``flashattn`` once per
    layer of the prefill and never in decode.  The prefill's last logits
    with the kernel are held against the same weights with the plain
-   version patched in (``LLM_LOGIT_ATOL``).
+   version patched in (``LLM_LOGIT_ATOL``, and the same argmax for
+   every prompt).
 9. timing  — each kernel's time on the largest dispatch of the path its
    launches are counted on (CUDA graph of repeated wrapper calls, so host
    overhead is excluded), its plain version's time, and its bound on this
-   card; the row-loop kernels at the shapes of their chunk twins; the
-   flash kernel at the llm phase's prefill shape, beside
-   ``scaled_dot_product_attention`` (``library_ms``, timed here only).
+   card; the row-loop kernels at the shapes of their chunk twins (the
+   compact kernels with their grid's block count); the flash kernel at
+   the llm phase's prefill shape, beside ``scaled_dot_product_attention``
+   (``library_ms``, timed here only), and the float32 flash kernel at the
+   same shape in float32 (phase timing_flash_f32).
 
 Every ``backend="kernel"`` run sets the launch counters to 0 just before
 it and reads them just after (``kernel_path``, and per ticket in phase
@@ -78,6 +88,8 @@ CUDA is absent or the repository's ``src/`` is not beside it.
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -94,13 +106,21 @@ K_RTOL, K_ATOL = 1e-6, 1e-5
 #: ill-conditioned near tangency.  Index columns are always exact.
 B_RTOL, B_ATOL = 1e-4, 1e-3
 
-#: Flash kernel against its plain version on the card, per dtype: both
-#: compute in float32 from the same inputs with sums in another order
-#: (about 1e-6 relative at T = 1,000 keys), so float32 outputs agree
-#: within 1e-5, and bf16 outputs, rounded once from those float32 values,
-#: by one bf16 step (2^-7 of the value), plus 1e-5 where a value near
-#: zero rounds at a finer step.  |a - b| <= rtol * max(|a|, |b|) + atol.
-FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+#: Flash kernel against its plain version on the card, per dtype, as
+#: (rtol, atol, vtol): |a - b| <= rtol * max(|a|, |b|) + atol + vtol *
+#: max|v| over the row's KV head.  float32: both compute in float32 from
+#: the same inputs with sums in another order (about 1e-6 relative at
+#: T = 1,000 keys), so they agree within 1e-5.  bf16: the kernel rounds
+#: each probability p to bf16 (relative error at most 2^-9) before the
+#: value product, as SDPA does, while the plain version keeps it in
+#: float32; that moves an output by at most 2^-9 * sum(p |v|) / l <=
+#: 2^-9 * max|v|, and vtol = 2^-8 allows twice that.  Both outputs are
+#: then rounded once to bf16, half a step each (2^-8 of the value), hence
+#: rtol = 2^-7.  The float32 sums' own differences (~1e-6 of max|v|) fit
+#: in the slack.  tests/test_torch_flashattn.py holds a plain-torch
+#: emulation of the kernel's rounding to the same bound on the CPU.
+FLASH_TOL = {torch.float32: (1e-5, 1e-5, 0.0),
+             torch.bfloat16: (2.0 ** -7, 0.0, 2.0 ** -8)}
 #: The llm phase's last-position logits, kernel against plain version:
 #: the two differ only where their float32 attention sums round to bf16
 #: differently (one step, on a few outputs per layer), and 40 layers of
@@ -165,6 +185,40 @@ def ptxas_summary(log: str) -> dict:
         elif fn and ("spill" in ln or "registers" in ln):
             out[fn] += ln.split(":", 1)[-1].strip() + "; "
     return out
+
+
+#: SASS opcodes counted per kernel in the build phase: the tensor-core
+#: products and the TMA tile loads of the bf16 flash kernel.
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def sass_counts(lib) -> dict | None:
+    """Per compiled kernel, how many ``SASS_OPS`` instructions ``cuobjdump
+    -sass`` of the built library shows (names shortened to the kernel and
+    its head-dim or prune template argument); None when the toolkit has no
+    ``cuobjdump``."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            raw = ln.split("Function :", 1)[1].strip()
+            m = re.search(r"\d+((?:flashattn|distthresh)\w*?_kernel)"
+                          r"(?:I(?:Li|Lb)(\w+?)E)?", raw)
+            fn = f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else (
+                m.group(1) if m else raw)
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", ln):
+                    counts[fn][op] += 1
+    return counts
 
 
 def check(cond, what: str) -> None:
@@ -307,46 +361,125 @@ def kernel_checks(dev) -> dict:
                 err[live_name] = max(err[live_name],
                                      compare_compact(k, p, capacity, label))
                 cases += 1
+    cases += subtile_checks(dev, rng, err)
     torch.cuda.synchronize()
     return {"cases": cases, "max_abs_err": err}
 
 
-def flash_close(a, b, dtype) -> float:
-    """Max |a - b|, after checking ``FLASH_TOL``."""
-    rtol, atol = FLASH_TOL[dtype]
+#: The chunk kernels' sub-tile cases at 256 × 256 tiles, as (entries,
+#: queries, dead tiles required): S1's largest batch (30 tiles of 26
+#: sub-tiles, the last tile 76 rows), two ragged tiles, and a batch of one
+#: sub-tile, whose overflow must fall inside that sub-tile.
+SUBTILE_CASES = ((7500, 100, True), (300, 100, False), (10, 100, False))
+
+
+def subtile_checks(dev, rng, err) -> int:
+    """``distthresh_compact`` and ``distthresh_compact_live`` (chunk) where
+    one logical tile spans several sub-tiles, with ragged rows and columns,
+    ample and overflowing capacity, armed with dead tiles where the batch
+    has them (``pruned`` must equal the plain twin's count of logical
+    tiles).  Adds to ``err``; returns the number of cases."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import distthresh as dt
+    from repro_torch.kernels import ops
+    d, cb = np.float32(2.0), 256
+    cases = 0
+    for c, q, need_dead in SUBTILE_CASES:
+        e_np, q_np = clustered(rng, c, q, groups=6)
+        e = torch.from_numpy(e_np).to(dev)
+        qt = torch.from_numpy(q_np).to(dev).T.contiguous()
+        subs = _build.load().distthresh_compact_subtiles(c, q, cb, cb, c, q)
+        check(subs > 1 or c <= 1024 // q, f"{c}x{q}: {subs} sub-tiles")
+        hits = int(dt.distthresh_compact_plain(e, qt, d, capacity=1)[4])
+        check(hits >= 2, f"{c}x{q}: {hits} hits")
+        prep = ops._host_tile_prune(e_np, q_np, d, cb, cb)
+        check(prep is not None or not need_dead, f"{c}x{q}: no dead tile")
+        arms = [{}]
+        if prep is not None:
+            arms.append(dict(e_mbr=torch.from_numpy(prep[0]).to(dev),
+                             q_mbr=torch.from_numpy(prep[1]).to(dev),
+                             d_prune=prep[2]))
+        live = ops._host_live_tiles(e_np, q_np, d, cb, cb)
+        for capacity in (hits + 64, hits // 2):
+            for arm in arms:
+                label = (f"distthresh_compact {c}x{q} ({subs} sub-tiles) "
+                         f"cap={capacity} armed={bool(arm)}")
+                k = dt.distthresh_compact(e, qt, d, capacity=capacity,
+                                          device=dev, **arm)
+                p = dt.distthresh_compact_plain(e, qt, d,
+                                                capacity=hits + 64, **arm)
+                check(int(k[5]) == int(p[5]), f"{label}: pruned differs")
+                check(bool(arm) == (int(p[5]) > 0), f"{label}: pruned count")
+                err["distthresh_compact"] = max(
+                    err["distthresh_compact"],
+                    compare_compact(k, p, capacity, label))
+                cases += 1
+            if live is not None:
+                lists = [torch.from_numpy(x).to(dev) for x in live[:3]]
+                label = f"distthresh_compact_live {c}x{q} cap={capacity}"
+                k = dt.distthresh_compact_live(e, qt, d, *lists,
+                                               capacity=capacity, device=dev)
+                p = dt.distthresh_compact_live_plain(e, qt, d, *lists,
+                                                     capacity=hits + 64)
+                err["distthresh_compact_live"] = max(
+                    err["distthresh_compact_live"],
+                    compare_compact(k, p, capacity, label))
+                cases += 1
+    return cases
+
+
+def flash_close(a, b, v, g: int, dtype) -> float:
+    """Max |a - b|, after checking ``FLASH_TOL`` (``v`` the values, ``g``
+    the query heads per KV head)."""
+    rtol, atol, vtol = FLASH_TOL[dtype]
     a, b = a.float(), b.float()
     diff = (a - b).abs()
+    vmax = v.float().abs().amax(dim=(1, 2)).repeat_interleave(g)
+    tol = (rtol * torch.maximum(a.abs(), b.abs()) + atol
+           + vtol * vmax[:, None, None])
     check(torch.isfinite(a).all().item(), "flashattn: non-finite output")
-    check((diff <= rtol * torch.maximum(a.abs(), b.abs()) + atol).all()
-          .item(), f"flashattn {dtype}: max |diff| {float(diff.max())}")
+    check((diff <= tol).all().item(),
+          f"flashattn {dtype}: max |diff| {float(diff.max())}")
     return float(diff.max())
+
+
+#: The llm phase's prefill shape for the flash kernel (granite-3-2b, 8
+#: prompts in the 1024 bucket): (BKV, g, S = T, hd).
+SERVE_FLASH = (64, 4, 1024, 64)
 
 
 def flash_checks(dev) -> dict:
     """The flash kernel against its plain version on seeded normal
     inputs: every head dim, g 1 and 4, S = T ragged, S < T windowed,
-    float32 and bf16."""
+    float32 (the CUDA-core kernel) and bf16 (the tensor-core kernel); and
+    bf16 at the serving shape."""
     from repro_torch.kernels import flashattn as fa
     gen = torch.Generator(device=dev).manual_seed(2026)
-    err, cases = 0.0, 0
+    err = {str(dt): 0.0 for dt in FLASH_TOL}
+    cases = 0
+
+    def case(dtype, bkv, g, s, t, hd):
+        q = torch.randn((bkv * g, s, hd), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((bkv, t, hd), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        got = fa.flashattn(q, k, v, g=g)
+        check(got.dtype == dtype and got.shape == q.shape,
+              "flashattn: output dtype or shape")
+        e = flash_close(got, fa.flashattn_plain(q, k, v, g=g), v, g, dtype)
+        err[str(dtype)] = max(err[str(dtype)], e)
+
     for dtype in (torch.float32, torch.bfloat16):
         for hd in fa.HEAD_DIMS:
             for g in (1, 4):
                 for s, t in ((77, 77), (1000, 1000), (45, 333)):
-                    bkv = 2
-                    q = torch.randn((bkv * g, s, hd), generator=gen,
-                                    device=dev).to(dtype)
-                    k, v = (torch.randn((bkv, t, hd), generator=gen,
-                                        device=dev).to(dtype)
-                            for _ in range(2))
-                    got = fa.flashattn(q, k, v, g=g)
-                    check(got.dtype == dtype and got.shape == q.shape,
-                          "flashattn: output dtype or shape")
-                    err = max(err, flash_close(
-                        got, fa.flashattn_plain(q, k, v, g=g), dtype))
+                    case(dtype, 2, g, s, t, hd)
                     cases += 1
+    bkv, g, s, hd = SERVE_FLASH
+    case(torch.bfloat16, bkv, g, s, s, hd)
+    cases += 1
     torch.cuda.synchronize()
-    return {"cases": cases, "max_abs_err": err,
+    return {"cases": cases, "max_abs_err": max(err.values()),
+            "max_abs_err_by_dtype": err,
             "tol": {str(k): v for k, v in FLASH_TOL.items()}}
 
 
@@ -915,6 +1048,8 @@ def llm_path(dev, card):
     check(torch.isfinite(last).all().item(), "non-finite logits")
     check(diff <= LLM_LOGIT_ATOL, f"prefill logits: kernel vs plain "
           f"{diff} > {LLM_LOGIT_ATOL}")
+    check(agree == len(prompts), f"prefill argmax: kernel and plain agree "
+          f"on {agree} of {len(prompts)} prompts")
     b, kvh = len(prompts), cfg.num_kv_heads
     g = cfg.num_heads // kvh
     emit({"phase": "llm", "arch": LLM_ARCH, "layers": cfg.num_layers,
@@ -1031,6 +1166,17 @@ def batch_inputs(db, pruning, accept=None):
     raise AssertionError(f"no dispatch of the {pruning} plan qualifies")
 
 
+def compact_blocks(c: int, q: int, append: str, tiles: int) -> int:
+    """Blocks a fused compaction kernel launches over ``tiles`` logical
+    256 × 256 tiles (or live-tile slots): the chunk kernels run each tile
+    as the library's sub-tiles, the row-loop kernels one block per tile."""
+    from repro_torch.kernels import _build
+    if append == "rowloop":
+        return tiles
+    return tiles * _build.load().distthresh_compact_subtiles(c, q, 256, 256,
+                                                             c, q)
+
+
 def kernel_timing(dev, s1, c3, counts, card):
     """Each kernel timed on the largest dispatch of the path its launches
     were counted on: ``counts[name] = (label, launches)``."""
@@ -1075,7 +1221,9 @@ def kernel_timing(dev, s1, c3, counts, card):
             event_ms(lambda: plain_fn(e, qt, d, capacity=cap, **arm)),
             bound(32 * (c + q) + 16 * hits + 8,
                   OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
-            armed=bool(arm)))
+            armed=bool(arm),
+            grid_blocks=compact_blocks(c, q, append, -(-c // 256) *
+                                       -(-q // 256))))
 
     # distthresh_dense, on the same dispatch: S1's dense path plans the
     # same batches.
@@ -1126,7 +1274,8 @@ def kernel_timing(dev, s1, c3, counts, card):
             event_ms(lambda: plain_fn(e, qt, d3, *lists, capacity=cap)),
             bound(32 * (c + q) + 8 * len(live[0]) + 16 * hits + 4,
                   OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
-            live_tiles=n_live))
+            live_tiles=n_live,
+            grid_blocks=compact_blocks(c, q, append, len(live[0]))))
     emit({"phase": "timing", "card": card,
           "note": "ms: device time per wrapper call (its output fills "
                   "included), CUDA graph; plain_ms: CUDA events; "
@@ -1136,23 +1285,23 @@ def kernel_timing(dev, s1, c3, counts, card):
     return table
 
 
-def flash_timing(dev, shape, n_launches):
+def flash_timing(dev, shape, n_launches, dtype=None):
     """The flash kernel at the llm phase's prefill shape (seeded normal
-    inputs): kernel, plain version and ``scaled_dot_product_attention``
-    on the same tensors (SDPA is the yardstick only; the port never
-    calls it)."""
+    inputs), in the model's dtype or ``dtype``: kernel, plain version and
+    ``scaled_dot_product_attention`` on the same tensors (SDPA is the
+    yardstick only; the port never calls it)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flashattn as fa
     gen = torch.Generator(device=dev).manual_seed(7)
     bh, bkv, s, t, hd, g = (shape[k] for k in ("bh", "bkv", "s", "t", "hd",
                                                 "g"))
-    dtype = shape["dtype"]
+    dtype = dtype or shape["dtype"]
     q = torch.randn((bh, s, hd), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((bkv, t, hd), generator=gen, device=dev).to(dtype)
             for _ in range(2))
     err = flash_close(fa.flashattn(q, k, v, g=g),
-                      fa.flashattn_plain(q, k, v, g=g), dtype)
+                      fa.flashattn_plain(q, k, v, g=g), v, g, dtype)
     # SDPA layout: (batch, heads, S, hd) with KV heads grouped; the
     # kernel's bh = (b·KVH + kvh)·g + j is head kvh·g + j of batch b.
     # Its is_causal mask is aligned to the first key, the kernel's to the
@@ -1206,13 +1355,22 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    _build.build()
+    lib = _build.build()
     _build.load()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    sass = sass_counts(lib)
+    if sass is not None:
+        wg = {k: v for k, v in sass.items() if "wgmma" in k}
+        check(len(wg) == 4 and all(v["HGMMA"] and v["UTMALDG"]
+                                   for v in wg.values()),
+              f"bf16 flash kernels without HGMMA or UTMALDG: {wg}")
+    emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": _build.build_seconds,
           "built": list(REPLACES), "ptxas": {
               src: ptxas_summary(log)
-              for src, log in _build.build_log.items()}})
+              for src, log in _build.build_log.items()},
+          "sass": sass if sass is not None else
+          "null: the toolkit has no cuobjdump"})
 
     t0 = time.perf_counter()
     checks = kernel_checks(dev)
@@ -1249,6 +1407,13 @@ def main() -> int:
     by_name = {r["name"]: r for r in kernel_timing(dev, s1, dbs["C3"],
                                                      counts, card)}
     by_name["flashattn"] = flash_timing(dev, flash_shape, flash_launches)
+    # The float32 flash kernel at the same shape: the kernel float32 inputs
+    # run (no model of the main path is float32, so it has no launches
+    # there and no row of its own in the table).
+    f32 = flash_timing(dev, flash_shape, 0, torch.float32)
+    f32["launches_counted_on"] = ("none: the llm phase runs bf16; float32 "
+                                  "inputs run this kernel (phase kernels)")
+    emit({"phase": "timing_flash_f32", **f32, "card": card})
     table = [by_name[name] for name in REPLACES]
     torch.cuda.synchronize()
 

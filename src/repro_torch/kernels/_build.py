@@ -34,7 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-#: C signatures of the launch functions (all return cudaError_t as int).
+#: C signatures of the exported functions, all returning int: the launch
+#: functions their cudaError_t, ``distthresh_compact_subtiles`` the
+#: compact kernels' sub-tiles per tile.
 SIGNATURES = {
     "distthresh_dense_launch": (_P, _I, _P, _L, _I, _F, _P, _P, _P, _P),
     "distthresh_compact_launch": (_P, _I, _P, _L, _I, _F, _I, _I, _I, _I, _I,
@@ -48,8 +50,10 @@ SIGNATURES["distthresh_compact_rowloop_launch"] = SIGNATURES[
     "distthresh_compact_launch"]
 SIGNATURES["distthresh_compact_live_rowloop_launch"] = SIGNATURES[
     "distthresh_compact_live_launch"]
-SIGNATURES["flashattn_launch"] = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                  _P)
+SIGNATURES["distthresh_compact_subtiles"] = (_I,) * 6
+SIGNATURES["flashattn_f32_launch"] = (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _F, _P)
+SIGNATURES["flashattn_bf16_launch"] = SIGNATURES["flashattn_f32_launch"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -10,39 +10,55 @@
 //
 // distthresh_compact_kernel  replaces distthresh_compact_pallas
 //   (append="chunk", repro/kernels/distthresh.py:536, pallas_call at :640).
-//   One block of cand_blk threads per (entry tile, query tile); each thread
-//   owns one entry row, the tile's queries are staged in shared memory.
-//   Pass 1 counts each row's hits, a block exclusive scan (warp shuffles +
-//   shared memory) gives row offsets, one thread takes the tile's base with
-//   atomicAdd on `count` (the paper's §5 atomic_inc), and pass 2 recomputes
-//   the hits and writes them at base + row offset.  Rows stay row-major
-//   inside a tile; the order of tiles changes from run to run.  With the
-//   early-out armed, thread 0 runs the tile's 3-axis box test first and a
-//   dead tile only bumps `pruned`.
-//   Bound: float32 arithmetic on the non-tensor cores, ~70 FLOP per
-//   interaction, against 32 bytes per entry and query read once.
-//   Left on the table: pass 2 repeats pass 1's arithmetic for rows with
-//   hits; a batch of ~10^4 candidates x 64 queries launches only ~40
-//   blocks on 132 SMs; `count` and `pruned` are single global atomics.
+//   The CUDA block is decoupled from the logical (cand_blk x qry_blk) tile:
+//   each tile is cut into sub-tiles of `sub_rows` entry rows x the tile's
+//   columns, at most kSubPairs = 1,024 pairs (sub_rows = 1,024 / columns,
+//   from the batch's column count), and one 256-thread block runs each
+//   sub-tile (grid: tiles x sub-tiles; blockIdx.y is the sub-tile).  The
+//   block stages its entry rows' and the tile's query columns' derived
+//   terms (make_side: velocity and anchor once per row and per column) in
+//   shared memory.  Thread t solves pairs t, t + 256, ... of the sub-tile's
+//   row-major pair list once each and keeps (hit, t_enter, t_exit) in
+//   registers; a block exclusive scan of the threads' hit counts (warp
+//   shuffles + shared memory) gives each thread's offset, thread 0 claims
+//   the block's base with one atomicAdd on `count` (the paper's §5
+//   atomic_inc, one per sub-tile rather than one per tile), and the hits
+//   are written at base + offset.  Rows past `capacity` are dropped and
+//   `count` stays exact; the order of rows changes from run to run.  With
+//   the early-out armed, every block of a tile runs the tile's 3-axis box
+//   test on the same boxes and a dead tile's blocks exit; only sub-tile 0
+//   adds the dead tile to `pruned`, so `pruned` counts logical tiles.
+//   At S1's largest batch (7,500 x 100 at 256 x 256 tiles) that is 30
+//   tiles x 26 sub-tiles = 780 blocks on 132 SMs, where one block per tile
+//   gave 30.
+//   Bound: float32 arithmetic on the non-tensor cores, 3 operations per
+//   pair and ~45 more per temporally overlapping pair, against 32 bytes
+//   per entry and query read once and 16 per hit written.
+//   Left on the table: the launch itself and the same-address atomics on
+//   `count` (one per sub-tile with hits) set the time at these sizes; the
+//   solve's IEEE division and square root are long dependent chains,
+//   which 4 pairs per thread overlap only as far as the compiler
+//   interleaves them; each sub-tile restages its tile's query columns.
 //
 // distthresh_compact_live_kernel  replaces distthresh_compact_live_pallas
-//   (repro/kernels/distthresh.py:697, pallas_call at :782).  The same tile
-//   body with blockIdx.x as the slot of a live-tile list read from device
-//   memory; slots >= n_live return at once.  Same bound, same gaps.
+//   (repro/kernels/distthresh.py:697, pallas_call at :782).  The same
+//   sub-tile body with blockIdx.x as the slot of a live-tile list read from
+//   device memory (blockIdx.y the sub-tile); slots >= n_live return at
+//   once.  Same bound, same gaps.
 //
 // distthresh_compact_rowloop_kernel  replaces distthresh_compact_pallas
 //   (append="rowloop", repro/kernels/distthresh.py:536, pallas_call at :640,
 //   body _rowloop_tile_body at :412).  On the TPU the row loop existed to
-//   avoid a gather; here it is its own design: one block per tile as above,
-//   but one warp per entry row.  Lane l solves columns l, l+32, ... once and
+//   avoid a gather; here it is its own design: one block per tile, one
+//   warp per entry row.  Lane l solves columns l, l+32, ... once and
 //   keeps (hit, t_enter, t_exit) in registers (up to 8 chunks, qry_blk <=
 //   256; wider tiles recompute in a second pass), one __ballot_sync per
 //   chunk gives the row's hits, lane 0 claims the row's base with one
 //   atomicAdd, and each hit lane writes at base + earlier chunks' hits +
-//   popc(mask & lanes below).  Each pair is solved once (the chunk kernel
-//   solves it twice); columns stay ascending within a row; `count` stays
-//   exact on overflow; rows land in a run-dependent order.  The armed
-//   variant runs the tile box test first, as the chunk kernel does.
+//   popc(mask & lanes below).  Each pair is solved once; columns stay
+//   ascending within a row; `count` stays exact on overflow; rows land in
+//   a run-dependent order.  The armed variant runs the tile box test
+//   first, as the chunk kernel does.
 //   Bound: float32 arithmetic, ~45 operations per temporally overlapping
 //   pair, plus one global atomic per row that has hits.
 //   Left on the table: one atomic per row instead of one per tile; at most
@@ -65,6 +81,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -177,89 +195,120 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
   return (wid > 0 ? warp_sums[wid - 1] : 0) + x - v;
 }
 
+// Store a derived side as column k of an 8-row shared-memory table whose
+// rows are `ld` floats apart.
+__device__ __forceinline__ void stage_side(float* smem, int ld, int k,
+                                           const Side& s) {
+  smem[0 * ld + k] = s.vx;
+  smem[1 * ld + k] = s.vy;
+  smem[2 * ld + k] = s.vz;
+  smem[3 * ld + k] = s.ax;
+  smem[4 * ld + k] = s.ay;
+  smem[5 * ld + k] = s.az;
+  smem[6 * ld + k] = s.ts;
+  smem[7 * ld + k] = s.te;
+}
+
 // Stage query tile tj's columns in shared memory as derived columns
-// (velocity, anchor, ts, te; 8 * qry_blk floats) and return how many
-// columns are valid.  Every thread of the block must call it.
+// (velocity, anchor, ts, te; 8 rows of `ld` >= the tile's columns floats)
+// and return how many columns are valid.  Every thread of the block must
+// call it.
 __device__ __forceinline__ int stage_queries(int tj,
                                              const float* __restrict__ qT,
                                              long long ldq, int Q,
                                              int qry_blk, int valid_q,
-                                             float* smem) {
+                                             float* smem, int ld) {
   const int q0 = tj * qry_blk;
   const int ncols = max(0, min(qry_blk, min(Q, valid_q) - q0));
   for (int k = threadIdx.x; k < ncols; k += blockDim.x) {
     const float* p = qT + q0 + k;
-    Side s = make_side(p[0], p[ldq], p[2 * ldq], p[3 * ldq], p[4 * ldq],
-                       p[5 * ldq], p[6 * ldq], p[7 * ldq]);
-    smem[0 * qry_blk + k] = s.vx;
-    smem[1 * qry_blk + k] = s.vy;
-    smem[2 * qry_blk + k] = s.vz;
-    smem[3 * qry_blk + k] = s.ax;
-    smem[4 * qry_blk + k] = s.ay;
-    smem[5 * qry_blk + k] = s.az;
-    smem[6 * qry_blk + k] = s.ts;
-    smem[7 * qry_blk + k] = s.te;
+    stage_side(smem, ld, k,
+               make_side(p[0], p[ldq], p[2 * ldq], p[3 * ldq], p[4 * ldq],
+                         p[5 * ldq], p[6 * ldq], p[7 * ldq]));
   }
   __syncthreads();
   return ncols;
 }
 
-__device__ __forceinline__ Side staged_query(const float* smem, int qry_blk,
-                                             int k) {
-  return {smem[k], smem[qry_blk + k], smem[2 * qry_blk + k],
-          smem[3 * qry_blk + k], smem[4 * qry_blk + k],
-          smem[5 * qry_blk + k], smem[6 * qry_blk + k],
-          smem[7 * qry_blk + k]};
+__device__ __forceinline__ Side staged_side(const float* smem, int ld,
+                                            int k) {
+  return {smem[k],          smem[ld + k],     smem[2 * ld + k],
+          smem[3 * ld + k], smem[4 * ld + k], smem[5 * ld + k],
+          smem[6 * ld + k], smem[7 * ld + k]};
 }
 
-// One (entry tile ti, query tile tj) of the fused compaction.
-__device__ __forceinline__ void compact_tile(
-    int ti, int tj, const float* __restrict__ entries, int C,
-    const float* __restrict__ qT, long long ldq, int Q, float d,
-    int cand_blk, int qry_blk, int valid_c, int valid_q, int capacity,
-    int* __restrict__ e_idx, int* __restrict__ q_idx,
-    float* __restrict__ t_enter, float* __restrict__ t_exit,
-    int* __restrict__ count) {
-  extern __shared__ float smem[];  // 8 * qry_blk: derived query columns
+// Blocks of the fused compaction: 8 warps, each thread solving up to 4
+// pairs of its sub-tile.
+constexpr int kSubThreads = 256;
+constexpr int kPairsPerThread = 4;
+constexpr int kSubPairs = kSubThreads * kPairsPerThread;
+
+// Sub-tile `sub` of (entry tile ti, query tile tj) of the fused
+// compaction: entry rows [ti * cand_blk + sub * sub_rows, + sub_rows) of
+// the tile x its columns.  `ld` >= every tile's column count is the
+// stride of the staged query table; sub_rows * ld <= kSubPairs.
+__device__ __forceinline__ void compact_subtile(
+    int ti, int tj, int sub, int sub_rows, int ld,
+    const float* __restrict__ entries, int C, const float* __restrict__ qT,
+    long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
+    int valid_q, int capacity, int* __restrict__ e_idx,
+    int* __restrict__ q_idx, float* __restrict__ t_enter,
+    float* __restrict__ t_exit, int* __restrict__ count) {
+  // 8 * ld derived query columns, then 8 * sub_rows derived entry rows.
+  extern __shared__ float smem[];
   __shared__ int s_base;
+  const int r_tile = sub * sub_rows;
+  const int row0 = ti * cand_blk + r_tile;
+  const int nrows =
+      min(sub_rows, min(cand_blk - r_tile, min(C, valid_c) - row0));
+  if (nrows <= 0) return;                      // uniform across the block
   const int q0 = tj * qry_blk;
-  const int ncols = stage_queries(tj, qT, ldq, Q, qry_blk, valid_q, smem);
-
-  const int local = threadIdx.x;
-  const int row = ti * cand_blk + local;
-  const bool row_ok = local < cand_blk && row < min(C, valid_c);
-  const float dd = d * d;
-  Side e;
-  if (row_ok) e = load_entry(entries, row);
-
-  // Pass 1: this row's hit count.
-  int n = 0;
-  if (row_ok) {
-    for (int k = 0; k < ncols; ++k) {
-      Side q = staged_query(smem, qry_blk, k);
-      float te, tx;
-      n += interval_solve(e, q, dd, &te, &tx) ? 1 : 0;
-    }
-  }
-  int tile_hits;
-  const int offset = block_exclusive_scan(n, &tile_hits);
-  if (tile_hits == 0) return;
-  if (threadIdx.x == 0) s_base = atomicAdd(count, tile_hits);
+  const int ncols = stage_queries(tj, qT, ldq, Q, qry_blk, valid_q, smem, ld);
+  if (ncols == 0) return;
+  float* es = smem + 8 * ld;
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x)
+    stage_side(es, sub_rows, r, load_entry(entries, row0 + r));
   __syncthreads();
 
-  // Pass 2: recompute this row's hits and write those that fit.
-  int dst = s_base + offset;
-  if (n == 0 || dst >= capacity) return;
-  for (int k = 0; k < ncols && dst < capacity; ++k) {
-    Side q = staged_query(smem, qry_blk, k);
-    float te, tx;
-    if (interval_solve(e, q, dd, &te, &tx)) {
-      e_idx[dst] = row;
-      q_idx[dst] = q0 + k;
-      t_enter[dst] = te;
-      t_exit[dst] = tx;
-      ++dst;
+  // Each pair of the sub-tile solved once; results stay in registers.
+  const int pairs = nrows * ncols;
+  const float dd = d * d;
+  bool h[kPairsPerThread];
+  float te[kPairsPerThread], tx[kPairsPerThread];
+#pragma unroll
+  for (int k = 0; k < kPairsPerThread; ++k) {
+    const int p = threadIdx.x + k * kSubThreads;
+    h[k] = false;
+    if (p < pairs) {
+      const int r = p / ncols;
+      h[k] = interval_solve(staged_side(es, sub_rows, r),
+                            staged_side(smem, ld, p - r * ncols), dd, &te[k],
+                            &tx[k]);
     }
+  }
+
+  // Offsets: a block scan of the threads' hit counts, one atomicAdd on
+  // `count` per sub-tile.
+  int n = 0;
+#pragma unroll
+  for (int k = 0; k < kPairsPerThread; ++k) n += h[k] ? 1 : 0;
+  int total;
+  int dst = block_exclusive_scan(n, &total);
+  if (total == 0) return;
+  if (threadIdx.x == 0) s_base = atomicAdd(count, total);
+  __syncthreads();
+  dst += s_base;
+#pragma unroll
+  for (int k = 0; k < kPairsPerThread; ++k) {
+    if (h[k] && dst < capacity) {
+      const int p = threadIdx.x + k * kSubThreads;
+      const int r = p / ncols;
+      e_idx[dst] = row0 + r;
+      q_idx[dst] = q0 + p - r * ncols;
+      t_enter[dst] = te[k];
+      t_exit[dst] = tx[k];
+    }
+    dst += h[k] ? 1 : 0;
   }
 }
 
@@ -283,7 +332,8 @@ __device__ __forceinline__ void rowloop_tile(
     int* __restrict__ count) {
   extern __shared__ float smem[];  // 8 * qry_blk: derived query columns
   const int q0 = tj * qry_blk;
-  const int ncols = stage_queries(tj, qT, ldq, Q, qry_blk, valid_q, smem);
+  const int ncols =
+      stage_queries(tj, qT, ldq, Q, qry_blk, valid_q, smem, qry_blk);
   const int nchunks = (ncols + 31) / 32;
   const int lane = threadIdx.x & 31;
   const unsigned lanes_below = (1u << lane) - 1u;
@@ -306,7 +356,7 @@ __device__ __forceinline__ void rowloop_tile(
           const int k = c * 32 + lane;
           bool h = false;
           if (k < ncols)
-            h = interval_solve(e, staged_query(smem, qry_blk, k), dd, &te[c],
+            h = interval_solve(e, staged_side(smem, qry_blk, k), dd, &te[c],
                                &tx[c]);
           mask[c] = __ballot_sync(0xffffffffu, h);
           n_r += __popc(mask[c]);
@@ -317,7 +367,7 @@ __device__ __forceinline__ void rowloop_tile(
         const int k = c * 32 + lane;
         float a, b;
         const bool h = k < ncols &&
-            interval_solve(e, staged_query(smem, qry_blk, k), dd, &a, &b);
+            interval_solve(e, staged_side(smem, qry_blk, k), dd, &a, &b);
         n_r += __popc(__ballot_sync(0xffffffffu, h));
       }
     }
@@ -349,7 +399,7 @@ __device__ __forceinline__ void rowloop_tile(
         const int k = c * 32 + lane;
         float a, b;
         const bool h = k < ncols &&
-            interval_solve(e, staged_query(smem, qry_blk, k), dd, &a, &b);
+            interval_solve(e, staged_side(smem, qry_blk, k), dd, &a, &b);
         const unsigned m = __ballot_sync(0xffffffffu, h);
         const int dst = base + before + __popc(m & lanes_below);
         if (h && dst < capacity) {
@@ -377,42 +427,45 @@ __device__ __forceinline__ bool tile_mbr_live(const float* em, const float* qm,
 }
 
 template <bool kPrune>
-__global__ void distthresh_compact_kernel(
+__global__ void __launch_bounds__(kSubThreads) distthresh_compact_kernel(
     const float* __restrict__ entries, int C, const float* __restrict__ qT,
     long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
-    int valid_q, int capacity, int ntq, const float* __restrict__ e_mbr,
-    const float* __restrict__ q_mbr, float d_prune, int* __restrict__ e_idx,
-    int* __restrict__ q_idx, float* __restrict__ t_enter,
-    float* __restrict__ t_exit, int* __restrict__ count,
-    int* __restrict__ pruned) {
+    int valid_q, int capacity, int ntq, int sub_rows, int ld,
+    const float* __restrict__ e_mbr, const float* __restrict__ q_mbr,
+    float d_prune, int* __restrict__ e_idx, int* __restrict__ q_idx,
+    float* __restrict__ t_enter, float* __restrict__ t_exit,
+    int* __restrict__ count, int* __restrict__ pruned) {
   const int ti = blockIdx.x / ntq;
   const int tj = blockIdx.x % ntq;
   if (kPrune) {
+    // Every sub-tile of a tile takes the same decision; sub-tile 0 counts
+    // the dead tile once.
     __shared__ int s_live;
     if (threadIdx.x == 0) {
       s_live = tile_mbr_live(e_mbr + 8 * ti, q_mbr + 8 * tj, d_prune);
-      if (!s_live) atomicAdd(pruned, 1);
+      if (!s_live && blockIdx.y == 0) atomicAdd(pruned, 1);
     }
     __syncthreads();
     if (!s_live) return;
   }
-  compact_tile(ti, tj, entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c,
-               valid_q, capacity, e_idx, q_idx, t_enter, t_exit, count);
+  compact_subtile(ti, tj, blockIdx.y, sub_rows, ld, entries, C, qT, ldq, Q, d,
+                  cand_blk, qry_blk, valid_c, valid_q, capacity, e_idx,
+                  q_idx, t_enter, t_exit, count);
 }
 
-__global__ void distthresh_compact_live_kernel(
+__global__ void __launch_bounds__(kSubThreads) distthresh_compact_live_kernel(
     const float* __restrict__ entries, int C, const float* __restrict__ qT,
     long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
-    int valid_q, int capacity, const int* __restrict__ tile_i,
-    const int* __restrict__ tile_j, const int* __restrict__ n_live,
-    int* __restrict__ e_idx, int* __restrict__ q_idx,
-    float* __restrict__ t_enter, float* __restrict__ t_exit,
-    int* __restrict__ count) {
+    int valid_q, int capacity, int sub_rows, int ld,
+    const int* __restrict__ tile_i, const int* __restrict__ tile_j,
+    const int* __restrict__ n_live, int* __restrict__ e_idx,
+    int* __restrict__ q_idx, float* __restrict__ t_enter,
+    float* __restrict__ t_exit, int* __restrict__ count) {
   const int slot = blockIdx.x;
   if (slot >= *n_live) return;
-  compact_tile(tile_i[slot], tile_j[slot], entries, C, qT, ldq, Q, d,
-               cand_blk, qry_blk, valid_c, valid_q, capacity, e_idx, q_idx,
-               t_enter, t_exit, count);
+  compact_subtile(tile_i[slot], tile_j[slot], blockIdx.y, sub_rows, ld,
+                  entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c,
+                  valid_q, capacity, e_idx, q_idx, t_enter, t_exit, count);
 }
 
 template <bool kPrune>
@@ -477,6 +530,22 @@ __global__ void distthresh_dense_kernel(const float* __restrict__ entries,
 
 int round_up_warp(int n) { return (n + 31) / 32 * 32; }
 
+// Sub-tile geometry of the fused compaction for a batch: the most columns
+// a tile can have (the staged table's stride), the entry rows per
+// sub-tile, and the sub-tiles per tile.
+struct SubTiles {
+  int ld, rows, per_tile;
+  SubTiles(int C, int Q, int cand_blk, int qry_blk, int valid_c,
+           int valid_q) {
+    ld = std::max(1, std::min(qry_blk, std::min(Q, valid_q)));
+    rows = std::max(1, std::min(cand_blk, kSubPairs / ld));
+    const int tile_rows =
+        std::max(1, std::min(cand_blk, std::min(C, valid_c)));
+    per_tile = (tile_rows + rows - 1) / rows;
+  }
+  size_t smem() const { return sizeof(float) * 8 * (size_t)(ld + rows); }
+};
+
 // Row-loop blocks: one warp per row in flight, at most 8 warps.
 int rowloop_threads(int cand_blk) {
   const int t = round_up_warp(cand_blk);
@@ -497,6 +566,13 @@ int distthresh_dense_launch(const float* entries, int C, const float* qT,
   return (int)cudaGetLastError();
 }
 
+// Sub-tiles per logical tile of the fused compaction's grid (blocks:
+// this times the tiles, or the live-tile slots).
+int distthresh_compact_subtiles(int C, int Q, int cand_blk, int qry_blk,
+                                int valid_c, int valid_q) {
+  return SubTiles(C, Q, cand_blk, qry_blk, valid_c, valid_q).per_tile;
+}
+
 int distthresh_compact_launch(const float* entries, int C, const float* qT,
                               long long ldq, int Q, float d, int cand_blk,
                               int qry_blk, int valid_c, int valid_q,
@@ -506,19 +582,19 @@ int distthresh_compact_launch(const float* entries, int C, const float* qT,
                               int* count, int* pruned, void* stream) {
   const int ntc = (C + cand_blk - 1) / cand_blk;
   const int ntq = (Q + qry_blk - 1) / qry_blk;
-  const size_t smem = sizeof(float) * 8 * (size_t)qry_blk;
-  const int threads = round_up_warp(cand_blk);
+  const SubTiles sub(C, Q, cand_blk, qry_blk, valid_c, valid_q);
+  const dim3 grid(ntc * ntq, sub.per_tile);
   cudaStream_t s = (cudaStream_t)stream;
   if (e_mbr != nullptr) {
-    distthresh_compact_kernel<true><<<ntc * ntq, threads, smem, s>>>(
+    distthresh_compact_kernel<true><<<grid, kSubThreads, sub.smem(), s>>>(
         entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
-        capacity, ntq, e_mbr, q_mbr, d_prune, e_idx, q_idx, t_enter, t_exit,
-        count, pruned);
+        capacity, ntq, sub.rows, sub.ld, e_mbr, q_mbr, d_prune, e_idx, q_idx,
+        t_enter, t_exit, count, pruned);
   } else {
-    distthresh_compact_kernel<false><<<ntc * ntq, threads, smem, s>>>(
+    distthresh_compact_kernel<false><<<grid, kSubThreads, sub.smem(), s>>>(
         entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
-        capacity, ntq, nullptr, nullptr, 0.0f, e_idx, q_idx, t_enter, t_exit,
-        count, pruned);
+        capacity, ntq, sub.rows, sub.ld, nullptr, nullptr, 0.0f, e_idx, q_idx,
+        t_enter, t_exit, count, pruned);
   }
   return (int)cudaGetLastError();
 }
@@ -531,12 +607,13 @@ int distthresh_compact_live_launch(const float* entries, int C,
                                    const int* n_live, int n_slots, int* e_idx,
                                    int* q_idx, float* t_enter, float* t_exit,
                                    int* count, void* stream) {
-  const size_t smem = sizeof(float) * 8 * (size_t)qry_blk;
-  const int threads = round_up_warp(cand_blk);
-  distthresh_compact_live_kernel<<<n_slots, threads, smem,
+  const SubTiles sub(C, Q, cand_blk, qry_blk, valid_c, valid_q);
+  const dim3 grid(n_slots, sub.per_tile);
+  distthresh_compact_live_kernel<<<grid, kSubThreads, sub.smem(),
                                    (cudaStream_t)stream>>>(
       entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
-      capacity, tile_i, tile_j, n_live, e_idx, q_idx, t_enter, t_exit, count);
+      capacity, sub.rows, sub.ld, tile_i, tile_j, n_live, e_idx, q_idx,
+      t_enter, t_exit, count);
   return (int)cudaGetLastError();
 }
 

@@ -23,9 +23,10 @@ Two things differ from the TPU kernels, neither visible in the results:
 
 * The TPU grid ran in order, so its running hit counter gave one fixed
   row order.  Hopper blocks run in parallel and append with one
-  ``atomicAdd`` per tile (the paper's §5 ``atomic_inc``; one per entry
-  row for ``append="rowloop"``): hits stay row-major inside a tile (in
-  column order inside a row), but the order of tiles (rows) changes from
+  ``atomicAdd`` per block: ``append="chunk"`` cuts each tile into
+  sub-tiles of at most 1,024 pairs, one block each (the paper's §5
+  ``atomic_inc`` per sub-tile), and ``append="rowloop"`` claims per entry
+  row (in column order inside a row).  So the order of rows changes from
   run to run.  The plain versions emit the TPU's order (tiles in grid
   order, query tiles innermost, row-major inside a tile), which both
   append modes give on the TPU.  Consumers sort canonically.
@@ -51,8 +52,9 @@ from repro_torch.kernels._launch import stream as _stream
 DEFAULT_CAND_BLK = 256
 DEFAULT_QRY_BLK = 256
 
-#: Largest tile edge the CUDA kernels take: ``cand_blk`` is the block's
-#: thread count, and ``qry_blk`` sizes its shared-memory query stage.
+#: Largest tile edge the CUDA kernels take: the row-loop kernels' shared
+#: query stage holds ``qry_blk`` columns, and the chunk kernels' sub-tiles
+#: at most 1,024 pairs.
 MAX_BLK = 1024
 
 #: append modes of the fused compaction wrappers (the reference's
@@ -175,17 +177,19 @@ def distthresh_compact(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
       d: scalar threshold (rounded to float32).
       capacity: result slots; hits past it are dropped, ``count`` stays
         exact.
-      cand_blk / qry_blk: the (entry, query) tile; the CUDA kernel runs
-        one block of ``cand_blk`` threads per tile.
+      cand_blk / qry_blk: the (entry, query) tile of the early-out and
+        of the plain version's order; the chunk kernel runs each tile as
+        sub-tiles of at most 1,024 pairs, one 256-thread block each, and
+        the row-loop kernel one block per tile.
       valid_c / valid_q: rows/columns at or past them are masked out.
       e_mbr / q_mbr / d_prune: the tile-level early-out, all three or
         none.  ``e_mbr`` is (ceil(C/cand_blk), 8) per entry tile
         ``(lo_xyz, hi_xyz, 0, 0)``, ``q_mbr`` the same per query tile; a
         tile whose boxes lie farther apart than ``d_prune`` is skipped and
         counted in ``pruned``.
-      append: ``"chunk"`` (one block per tile, a block scan and one
-        atomic per tile) or ``"rowloop"`` (one warp per entry row, one
-        atomic per row); the same rows, the same counters.
+      append: ``"chunk"`` (each pair solved once, one atomic per
+        sub-tile) or ``"rowloop"`` (one warp per entry row, one atomic per
+        row); the same rows, the same counters.
 
     Returns ``(entry_idx, query_idx, t_enter, t_exit, count, pruned)``:
     four (capacity,) buffers (int32 -1 pad, float32 0 pad) and two 0-dim
@@ -254,8 +258,9 @@ def distthresh_compact_live(entries: torch.Tensor, queries_t: torch.Tensor,
 
     ``tile_i`` / ``tile_j`` are (S,) int32 entry- and query-tile ids in
     grid order (query tiles innermost); slots at or past ``n_live`` ((1,)
-    int32, read on the device) are skipped.  The CUDA kernel runs one
-    block per slot; ``append`` is as in :func:`distthresh_compact`.
+    int32, read on the device) are skipped.  The chunk kernel runs each
+    slot's tile as sub-tiles (as in :func:`distthresh_compact`), the
+    row-loop kernel one block per slot.
     Returns ``(entry_idx, query_idx, t_enter, t_exit, count)`` — no
     ``pruned`` counter: the caller knows ``num_tiles - n_live``.
     """

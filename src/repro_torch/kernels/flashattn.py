@@ -6,16 +6,26 @@ CUDA kernel in ``csrc/flashattn.cu`` (``LAUNCHES["flashattn"]``).  Layout
 and masking are the TPU kernel's: q (BH, S, hd) with BH = BKV·g, k and v
 (BKV, T, hd); query head ``bh`` reads KV head ``bh // g``; query row ``i``
 sits at key position ``(T - S) + i`` and sees the keys at or before it.
-Math in float32 (q scaled by ``1/sqrt(hd)`` before the dot, the finite
-sentinel −1e30 on masked scores), output in q's dtype.
+Softmax in float32 (scores scaled by ``1/sqrt(hd)``, the finite sentinel
+−1e30 on masked scores), output in q's dtype.
+
+The wrapper picks one of two kernels by dtype, with no fallback between
+them: float32 runs a kernel that does the reference's float32 arithmetic
+on the CUDA cores; bfloat16 runs a tensor-core kernel (``wgmma`` products
+fed by TMA copies) whose two products take bf16 operands with float32
+sums: the probabilities are rounded to bf16 before the value product, as
+``scaled_dot_product_attention`` does, so its outputs differ from
+:func:`flashattn_plain`'s by up to about ``2**-9 * max|v|`` of the KV
+head beyond their own bf16 rounding (``chip_smoke.py``'s ``FLASH_TOL``).
 
 Differences from the TPU kernel, none visible in the results:
 
 * no padding: S and T are any lengths with ``S <= T`` (the TPU kernel
   wanted multiples of its blocks; a query row with no key at or before it
   has no causal meaning, so ``S > T`` is refused);
-* ``hd`` is one of :data:`HEAD_DIMS` (a template parameter of the kernel),
-  f32 or bf16, q, k and v of one dtype.
+* ``hd`` is one of :data:`HEAD_DIMS` (a template parameter of the kernels),
+  f32 or bf16, q, k and v of one dtype; bf16 tensors start 16-byte
+  aligned (TMA's rule; every fresh allocation does).
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
 tensor it runs :func:`flashattn_plain`, the same function in plain
@@ -81,12 +91,18 @@ def flashattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, g: int,
     for x, what in ((q, "q"), (k, "k"), (v, "v")):
         if not x.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start at 16-byte aligned "
+                         "addresses (the kernel's TMA copies need it)")
     out = torch.empty_like(q)
     if bh and s:
         from repro_torch.kernels import _build
-        err = _build.load().flashattn_launch(
-            ptr(q), ptr(k), ptr(v), ptr(out), bh, s, t, hd, g,
-            int(q.dtype == torch.bfloat16), float(_scale(hd)), stream(dev))
+        lib = _build.load()
+        launch = lib.flashattn_bf16_launch if bf16 else \
+            lib.flashattn_f32_launch
+        err = launch(ptr(q), ptr(k), ptr(v), ptr(out), bh, s, t, hd, g,
+                     float(_scale(hd)), stream(dev))
         raise_on(err, "flashattn")
         count_launch("flashattn")
     return out
