@@ -22,21 +22,25 @@ Phases, each printing one JSON line (``"phase": ...``):
    seeded random tiles with the degenerate cases (zero-length extent, zero
    relative velocity, tangent roots, disjoint intervals), at 256×256,
    64×32, 40×24 and 32×320 tiles (the row-loop kernels' register and
-   recompute paths), with ample and overflowing capacity; and the chunk
-   kernels' sub-tiles (``SUBTILE_CASES``: S1's largest batch shape,
-   ragged tiles, an overflow inside a lone sub-tile, dead tiles armed).
-   Hit sets, ``count``
-   and ``pruned`` must be exact; intervals agree within ``rtol=1e-6,
-   atol=1e-5`` (same float32 operations in the same order, built with
-   ``-fmad=false``; the atomic append changes only the row order, so rows
-   are compared after a canonical sort).
+   recompute slots), with ample and overflowing capacity; the compact
+   kernels' blocks (``BLOCK_CASES``, chunk sub-tiles and row-loop row
+   blocks: S1's largest batch shape, ragged tiles, a last tile shorter
+   than one block, an overflow inside a lone block, dead tiles armed);
+   and the dense kernel on ``DENSE_CASES`` (Q > 256, one entry, one
+   query, ragged row blocks, ``queries_t`` a column slice).  Hit sets,
+   ``count`` and ``pruned`` must be exact; intervals agree within
+   ``rtol=1e-6, atol=1e-5`` (same float32 operations in the same order,
+   built with ``-fmad=false``; the atomic append changes only the row
+   order, so rows are compared after a canonical sort).  With ample
+   capacity, each entry row's row-loop hits take consecutive slots in
+   ascending query order.
 4. main    — ``TrajectoryDB.from_scenario("S1", scale=1.0)`` (GALAXY,
    2,500 trajectories × 400 segments = 10^6 entry segments, 100 query
    trajectories, d = 1) under the default policy, ``backend="kernel"``
    against ``backend="torch"``, then the same query with
    ``compaction="dense"`` (phase main_dense); then one warm execution of
    the main path's plan under ``torch.profiler`` (device busy share,
-   device time by kernel).
+   device time by kernel), and one of the dense path's (profile_dense).
 5. modes   — C1 and C3 at scale 0.1 (C3 as the README configures it),
    pruning none/spatial/hierarchical × compaction
    fused/fused_rowloop/dense, all equal to the torch backend and the
@@ -54,7 +58,9 @@ Phases, each printing one JSON line (``"phase": ...``):
    (on the card there is no rung below the kernels).  Then
    ``fit_response_model(quick=True)`` on ticket 1's queries, and ticket
    1's queries rejected under a deadline below the fitted model's priced
-   time and served under one above it (phase fit).
+   time and served under one above it (phase fit).  Ticket 2 runs once
+   more under ``torch.profiler`` on a broker without a cache
+   (profile_ticket2: its device time by kernel).
 7. stream  — ``db.query_stream(backend="kernel")`` on S1 at scale 0.3
    against ``db.query``.
 8. llm     — LLM serving: granite-3-2b at full width and depth (40
@@ -261,8 +267,8 @@ def clustered(rng, c: int, q: int, groups: int):
     de, dq = degenerate_rows()
     e = segs(c, np.sort(rng.integers(0, groups, c)) * 50.0)
     qq = segs(q, rng.choice([0.0, 50.0 * (groups // 2)], q))
-    e[:len(de)] = de
-    qq[:len(dq)] = dq
+    e[:len(de)] = de[:c]
+    qq[:len(dq)] = dq[:q]
     return e, qq
 
 
@@ -299,6 +305,21 @@ def compare_compact(k, p_full, capacity, label):
     check(kept <= set(zip(pr[0].tolist(), pr[1].tolist())),
           f"{label}: overflow kept a non-hit")
     return 0.0
+
+
+def check_row_runs(k, qry_blk: int, label) -> None:
+    """The row-loop append order (ample capacity): each entry row's hits
+    in one query tile take consecutive slots, in ascending
+    ``query_idx``."""
+    n = int(k[4])
+    e = k[0][:n].cpu().numpy().astype(np.int64)
+    q = k[1][:n].cpu().numpy().astype(np.int64)
+    key = e * (int(q.max(initial=0)) // qry_blk + 1) + q // qry_blk
+    same = key[1:] == key[:-1]
+    check(int(n > 0) + int((~same).sum()) == len(np.unique(key)),
+          f"{label}: an entry row's hits are not consecutive")
+    check(bool((q[1:][same] > q[:-1][same]).all()),
+          f"{label}: columns not ascending within a row")
 
 
 def kernel_checks(dev) -> dict:
@@ -351,6 +372,8 @@ def kernel_checks(dev) -> dict:
                           f"{label}: pruned count")
                     err[name] = max(err[name],
                                     compare_compact(k, p, capacity, label))
+                    if append == "rowloop" and capacity > hits:
+                        check_row_runs(k, qb, label)
                     cases += 1
                 label = f"{live_name} {cb}x{qb} cap={capacity}"
                 k = dt.distthresh_compact_live(e, qt, d, *lists,
@@ -360,37 +383,77 @@ def kernel_checks(dev) -> dict:
                 p = live_plain(e, qt, d, *lists, capacity=hits + 64, **kw)
                 err[live_name] = max(err[live_name],
                                      compare_compact(k, p, capacity, label))
+                if append == "rowloop" and capacity > hits:
+                    check_row_runs(k, qb, label)
                 cases += 1
-    cases += subtile_checks(dev, rng, err)
+    for append in ("chunk", "rowloop"):
+        cases += block_checks(dev, rng, err, append)
+    cases += dense_checks(dev, rng, err)
     torch.cuda.synchronize()
     return {"cases": cases, "max_abs_err": err}
 
 
-#: The chunk kernels' sub-tile cases at 256 × 256 tiles, as (entries,
-#: queries, dead tiles required): S1's largest batch (30 tiles of 26
-#: sub-tiles, the last tile 76 rows), two ragged tiles, and a batch of one
-#: sub-tile, whose overflow must fall inside that sub-tile.
-SUBTILE_CASES = ((7500, 100, True), (300, 100, False), (10, 100, False))
+#: The compact kernels' block cases at 256 × 256 tiles, per append mode,
+#: as (entries, queries, dead tiles required).  chunk: S1's largest batch
+#: (30 tiles of 26 sub-tiles of 10 rows, the last tile 76 rows), two ragged
+#: tiles, and a batch of one sub-tile, whose overflow must fall inside that
+#: sub-tile.  rowloop: S1's largest batch (30 tiles of 32 row blocks of 8
+#: rows), a batch whose last tile (5 rows) is shorter than one row block,
+#: and a batch of one row block.
+BLOCK_CASES = {"chunk": ((7500, 100, True), (300, 100, False),
+                         (10, 100, False)),
+               "rowloop": ((7500, 100, True), (517, 100, False),
+                           (8, 100, False))}
 
 
-def subtile_checks(dev, rng, err) -> int:
-    """``distthresh_compact`` and ``distthresh_compact_live`` (chunk) where
-    one logical tile spans several sub-tiles, with ragged rows and columns,
-    ample and overflowing capacity, armed with dead tiles where the batch
-    has them (``pruned`` must equal the plain twin's count of logical
-    tiles).  Adds to ``err``; returns the number of cases."""
+def block_rows(append: str, q: int) -> int:
+    """Entry rows per block at ``q`` <= 256 columns: a chunk sub-tile holds
+    1,024 pairs; a row block's 8 warps take 1,024 / (8 · q) rows each,
+    within the 8 chunks of 32 columns a warp keeps in registers."""
+    if append == "chunk":
+        return max(1, 1024 // q)
+    chunks = -(-q // 32)
+    return 8 * max(1, min(1024 // (8 * q), 8 // chunks))
+
+
+def blocks_per_tile(c: int, q: int, append: str, blk: int = 256) -> int:
+    """Blocks per logical ``blk`` × ``blk`` tile of a compact kernel's
+    grid, from the built library's geometry."""
     from repro_torch.kernels import _build
+    fn = (_build.load().distthresh_compact_rowloop_blocks
+          if append == "rowloop" else
+          _build.load().distthresh_compact_subtiles)
+    return fn(c, q, blk, blk, c, q)
+
+
+def block_checks(dev, rng, err, append: str) -> int:
+    """``distthresh_compact`` and ``distthresh_compact_live`` with
+    ``append`` where one logical tile spans several blocks (chunk
+    sub-tiles or row-loop row blocks), with ragged rows and columns,
+    ample capacity and capacity that cuts inside a block, armed with dead
+    tiles where the batch has them (``pruned`` must equal the plain
+    twin's count of logical tiles).  The row loop's ample cases also pass
+    the order check.  Adds to ``err``; returns the number of cases."""
     from repro_torch.kernels import distthresh as dt
     from repro_torch.kernels import ops
+    suffix = "_rowloop" if append == "rowloop" else ""
+    name, live_name = ("distthresh_compact" + suffix,
+                       "distthresh_compact_live" + suffix)
+    plain = getattr(dt, name + "_plain")
+    live_plain = getattr(dt, live_name + "_plain")
     d, cb = np.float32(2.0), 256
     cases = 0
-    for c, q, need_dead in SUBTILE_CASES:
+    for c, q, need_dead in BLOCK_CASES[append]:
         e_np, q_np = clustered(rng, c, q, groups=6)
         e = torch.from_numpy(e_np).to(dev)
         qt = torch.from_numpy(q_np).to(dev).T.contiguous()
-        subs = _build.load().distthresh_compact_subtiles(c, q, cb, cb, c, q)
-        check(subs > 1 or c <= 1024 // q, f"{c}x{q}: {subs} sub-tiles")
-        hits = int(dt.distthresh_compact_plain(e, qt, d, capacity=1)[4])
+        per_tile = blocks_per_tile(c, q, append)
+        rows_per_block = block_rows(append, q)
+        check(per_tile == -(-min(c, cb) // rows_per_block),
+              f"{name} {c}x{q}: {per_tile} blocks per tile, expected "
+              f"{rows_per_block} rows each")
+        blocks = -(-c // cb) * per_tile
+        hits = int(plain(e, qt, d, capacity=1)[4])
         check(hits >= 2, f"{c}x{q}: {hits} hits")
         prep = ops._host_tile_prune(e_np, q_np, d, cb, cb)
         check(prep is not None or not need_dead, f"{c}x{q}: no dead tile")
@@ -402,30 +465,64 @@ def subtile_checks(dev, rng, err) -> int:
         live = ops._host_live_tiles(e_np, q_np, d, cb, cb)
         for capacity in (hits + 64, hits // 2):
             for arm in arms:
-                label = (f"distthresh_compact {c}x{q} ({subs} sub-tiles) "
+                label = (f"{name} {c}x{q} ({blocks} blocks) "
                          f"cap={capacity} armed={bool(arm)}")
                 k = dt.distthresh_compact(e, qt, d, capacity=capacity,
-                                          device=dev, **arm)
-                p = dt.distthresh_compact_plain(e, qt, d,
-                                                capacity=hits + 64, **arm)
+                                          append=append, device=dev, **arm)
+                p = plain(e, qt, d, capacity=hits + 64, **arm)
                 check(int(k[5]) == int(p[5]), f"{label}: pruned differs")
                 check(bool(arm) == (int(p[5]) > 0), f"{label}: pruned count")
-                err["distthresh_compact"] = max(
-                    err["distthresh_compact"],
-                    compare_compact(k, p, capacity, label))
+                err[name] = max(err[name],
+                                compare_compact(k, p, capacity, label))
+                if append == "rowloop" and capacity > hits:
+                    check_row_runs(k, cb, label)
                 cases += 1
             if live is not None:
                 lists = [torch.from_numpy(x).to(dev) for x in live[:3]]
-                label = f"distthresh_compact_live {c}x{q} cap={capacity}"
+                label = f"{live_name} {c}x{q} cap={capacity}"
                 k = dt.distthresh_compact_live(e, qt, d, *lists,
-                                               capacity=capacity, device=dev)
-                p = dt.distthresh_compact_live_plain(e, qt, d, *lists,
-                                                     capacity=hits + 64)
-                err["distthresh_compact_live"] = max(
-                    err["distthresh_compact_live"],
-                    compare_compact(k, p, capacity, label))
+                                               capacity=capacity,
+                                               append=append, device=dev)
+                p = live_plain(e, qt, d, *lists, capacity=hits + 64)
+                err[live_name] = max(err[live_name],
+                                     compare_compact(k, p, capacity, label))
+                if append == "rowloop" and capacity > hits:
+                    check_row_runs(k, cb, label)
                 cases += 1
     return cases
+
+
+#: The dense kernel's edge cases as (entries, queries, column offset of
+#: ``queries_t`` in a wider (8, N) array, or None for a contiguous one):
+#: more than 256 columns (three column blocks, the last partial), one
+#: entry, one query, one of each, 7,501 rows at 100 columns (row blocks of
+#: 10, the last of one row), and column slices.
+DENSE_CASES = ((70, 600, None), (70, 600, 13), (1, 100, None),
+               (300, 1, None), (1, 1, None), (7501, 100, 5), (37, 250, 3))
+
+
+def dense_checks(dev, rng, err) -> int:
+    """``distthresh_dense`` against its plain twin on ``DENSE_CASES``: hit
+    masks exact, intervals within ``K_RTOL``/``K_ATOL``.  Adds to ``err``;
+    returns the number of cases."""
+    from repro_torch.kernels import distthresh as dt
+    d = np.float32(2.0)
+    for c, q, off in DENSE_CASES:
+        e_np, q_np = clustered(rng, c, q + 2 * (off or 0), groups=6)
+        e = torch.from_numpy(e_np).to(dev)
+        qt = torch.from_numpy(q_np).to(dev).T.contiguous()
+        if off is not None:
+            qt = qt[:, off:off + q]
+        label = f"dense {c}x{q} offset={off}"
+        kd = dt.distthresh_dense(e, qt, d, device=dev)
+        pd = dt.distthresh_dense_plain(e, qt, d)
+        check(torch.equal(kd[2], pd[2]), f"{label}: hit masks differ")
+        for a, b in zip(kd[:2], pd[:2]):
+            check(torch.allclose(a, b, rtol=K_RTOL, atol=K_ATOL),
+                  f"{label}: intervals differ")
+            err["distthresh_dense"] = max(err["distthresh_dense"],
+                                          float((a - b).abs().max()))
+    return len(DENSE_CASES)
 
 
 def flash_close(a, b, v, g: int, dtype) -> float:
@@ -649,19 +746,51 @@ def profiled(fn):
         k: {"n": n, "us": us} for k, (n, us) in top}
 
 
-def profile_main(db, card):
+def profile_main(db, card, compaction=None):
     """One warm execution of the main path's plan (planning excluded)
-    under ``torch.profiler``: the device's busy share of the execution's
-    wall time, and device time by kernel / copy name."""
+    under ``torch.profiler``, or of the dense path's with
+    ``compaction="dense"`` (phase profile_dense): the device's busy share
+    of the execution's wall time, and device time by kernel / copy
+    name."""
     q, d = db.scenario_queries, db.scenario_d
-    plan = db.plan(q, d=d)
-    eng = db.engine("kernel")
+    pol = db.policy if compaction is None else db.policy.with_(
+        compaction=compaction)
+    plan = db.plan(q, pol, d=d)
+    eng = db.engine("kernel", pol)
     eng.execute(q, d, plan)
     torch.cuda.synchronize()
     (_, st), wall, busy, _, top = profiled(lambda: eng.execute(q, d, plan))
-    emit({"phase": "profile", "execute_wall_s": wall,
+    emit({"phase": "profile" + ("" if compaction is None else
+                                f"_{compaction}"),
+          "execute_wall_s": wall,
           "device_busy_s": busy, "device_busy_share": busy / wall,
           "dispatch_s": st.dispatch_seconds, "sync_s": st.sync_seconds,
+          "device_us_by_name": top, "card": card})
+
+
+def profile_ticket2(db, card):
+    """Serve ticket 2 (the second quarter of the query trajectories) once
+    more under ``torch.profiler`` on a broker without a cache, under the
+    fault plan that steps it to ``kernel/fused_rowloop``: its wall, device
+    busy time and device time by kernel / copy name (phase
+    profile_ticket2)."""
+    from repro_torch import faults
+    from repro_torch.serve import RetryPolicy
+    qk = ticket_queries(db)[1][0]
+    broker = db.broker(backend="kernel",
+                       retry=RetryPolicy(degrade_after=1, seed=0))
+    plan = fail_fused_plan()
+
+    def run():
+        faults.arm(plan)
+        try:
+            return broker.submit(qk, db.scenario_d).result()
+        finally:
+            faults.disarm()
+    _, wall, busy, _, top = profiled(run)
+    check(any("rowloop" in k for k in top), f"ticket 2 profile: {top}")
+    emit({"phase": "profile_ticket2", "wall_s": wall,
+          "device_busy_s": busy, "device_busy_share": busy / wall,
           "device_us_by_name": top, "card": card})
 
 
@@ -738,6 +867,15 @@ def union_rows(parts):
                                        backend="kernel")
 
 
+def fail_fused_plan():
+    """The fault plan that fails every ``compaction="fused"`` dispatch, so
+    a broker with a retry policy steps down to ``kernel/fused_rowloop``."""
+    from repro_torch import faults
+    return faults.FaultPlan([faults.FaultSpec(
+        "engine.dispatch", "error", times=None,
+        match={"compaction": "fused"})])
+
+
 def serve_path(db, main_res, card):
     """S1 at scale 1.0 through ``db.broker(backend="kernel")``: 4 tickets
     of 25 query trajectories, ticket 2 under a fault plan that fails every
@@ -751,9 +889,7 @@ def serve_path(db, main_res, card):
     broker = db.broker(backend="kernel", cache=cache,
                        retry=RetryPolicy(degrade_after=1, seed=0))
     tickets = ticket_queries(db)
-    fail_fused = faults.FaultPlan([faults.FaultSpec(
-        "engine.dispatch", "error", times=None,
-        match={"compaction": "fused"})])
+    fail_fused = fail_fused_plan()
     parts, report, ladder_counts = [], [], None
     for k, (qk, idx) in enumerate(tickets, start=1):
         plan = fail_fused if k == 2 else None
@@ -1166,20 +1302,10 @@ def batch_inputs(db, pruning, accept=None):
     raise AssertionError(f"no dispatch of the {pruning} plan qualifies")
 
 
-def compact_blocks(c: int, q: int, append: str, tiles: int) -> int:
-    """Blocks a fused compaction kernel launches over ``tiles`` logical
-    256 × 256 tiles (or live-tile slots): the chunk kernels run each tile
-    as the library's sub-tiles, the row-loop kernels one block per tile."""
-    from repro_torch.kernels import _build
-    if append == "rowloop":
-        return tiles
-    return tiles * _build.load().distthresh_compact_subtiles(c, q, 256, 256,
-                                                             c, q)
-
-
 def kernel_timing(dev, s1, c3, counts, card):
     """Each kernel timed on the largest dispatch of the path its launches
     were counted on: ``counts[name] = (label, launches)``."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import distthresh as dt
     from repro_torch.kernels import ops
     table = []
@@ -1222,8 +1348,8 @@ def kernel_timing(dev, s1, c3, counts, card):
             bound(32 * (c + q) + 16 * hits + 8,
                   OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
             armed=bool(arm),
-            grid_blocks=compact_blocks(c, q, append, -(-c // 256) *
-                                       -(-q // 256))))
+            grid_blocks=-(-c // 256) * -(-q // 256) * blocks_per_tile(
+                c, q, append)))
 
     # distthresh_dense, on the same dispatch: S1's dense path plans the
     # same batches.
@@ -1238,7 +1364,8 @@ def kernel_timing(dev, s1, c3, counts, card):
         graph_ms(lambda: dt.distthresh_dense(e, qt, d, device=dev)),
         event_ms(lambda: dt.distthresh_dense_plain(e, qt, d)),
         bound(32 * (c + q) + 9 * c * q,
-              OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap)))
+              OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
+        grid_blocks=_build.load().distthresh_dense_blocks(c, q)))
 
     # distthresh_compact_live and its row-loop twin, on the largest C3
     # hierarchical dispatch that launches them (one with dead tiles and at
@@ -1275,7 +1402,7 @@ def kernel_timing(dev, s1, c3, counts, card):
             bound(32 * (c + q) + 8 * len(live[0]) + 16 * hits + 4,
                   OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
             live_tiles=n_live,
-            grid_blocks=compact_blocks(c, q, append, len(live[0]))))
+            grid_blocks=len(live[0]) * blocks_per_tile(c, q, append)))
     emit({"phase": "timing", "card": card,
           "note": "ms: device time per wrapper call (its output fills "
                   "included), CUDA graph; plain_ms: CUDA events; "
@@ -1381,8 +1508,10 @@ def main() -> int:
 
     s1, main_res, main_counts, dense_counts = main_path(dev, card)
     profile_main(s1, card)
+    profile_main(s1, card, "dense")
     dbs, path_counts = mode_matrix(dev, card)
     ladder_counts, tickets = serve_path(s1, main_res, card)
+    profile_ticket2(s1, card)
     fit_path(s1, tickets, card)
     stream_path(dev, card)
     flash_launches, flash_shape = llm_path(dev, card)

@@ -35,8 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: C signatures of the exported functions, all returning int: the launch
-#: functions their cudaError_t, ``distthresh_compact_subtiles`` the
-#: compact kernels' sub-tiles per tile.
+#: functions their cudaError_t, the geometry functions their grid's blocks
+#: (``distthresh_dense_blocks`` in all, ``distthresh_compact_subtiles`` and
+#: ``distthresh_compact_rowloop_blocks`` per logical tile).
 SIGNATURES = {
     "distthresh_dense_launch": (_P, _I, _P, _L, _I, _F, _P, _P, _P, _P),
     "distthresh_compact_launch": (_P, _I, _P, _L, _I, _F, _I, _I, _I, _I, _I,
@@ -51,6 +52,8 @@ SIGNATURES["distthresh_compact_rowloop_launch"] = SIGNATURES[
 SIGNATURES["distthresh_compact_live_rowloop_launch"] = SIGNATURES[
     "distthresh_compact_live_launch"]
 SIGNATURES["distthresh_compact_subtiles"] = (_I,) * 6
+SIGNATURES["distthresh_compact_rowloop_blocks"] = (_I,) * 6
+SIGNATURES["distthresh_dense_blocks"] = (_I,) * 2
 SIGNATURES["flashattn_f32_launch"] = (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _F, _P)
 SIGNATURES["flashattn_bf16_launch"] = SIGNATURES["flashattn_f32_launch"]

@@ -49,33 +49,63 @@
 // distthresh_compact_rowloop_kernel  replaces distthresh_compact_pallas
 //   (append="rowloop", repro/kernels/distthresh.py:536, pallas_call at :640,
 //   body _rowloop_tile_body at :412).  On the TPU the row loop existed to
-//   avoid a gather; here it is its own design: one block per tile, one
-//   warp per entry row.  Lane l solves columns l, l+32, ... once and
-//   keeps (hit, t_enter, t_exit) in registers (up to 8 chunks, qry_blk <=
-//   256; wider tiles recompute in a second pass), one __ballot_sync per
-//   chunk gives the row's hits, lane 0 claims the row's base with one
-//   atomicAdd, and each hit lane writes at base + earlier chunks' hits +
-//   popc(mask & lanes below).  Each pair is solved once; columns stay
-//   ascending within a row; `count` stays exact on overflow; rows land in
-//   a run-dependent order.  The armed variant runs the tile box test
-//   first, as the chunk kernel does.
-//   Bound: float32 arithmetic, ~45 operations per temporally overlapping
-//   pair, plus one global atomic per row that has hits.
-//   Left on the table: one atomic per row instead of one per tile; at most
-//   8 warps per block, so a 256-row tile runs 32 rows per warp in turn;
-//   lanes past the last column idle in the last chunk (100 columns fill 4
-//   chunks of 32).
+//   avoid a gather; here it is its own design, a warp per entry row, with
+//   the block decoupled from the logical tile as in the chunk kernel: a
+//   block of 8 warps takes `rows` = 8 x per_warp consecutive rows of one
+//   tile (per_warp rows per warp, chosen so that a block holds about
+//   kSubPairs pairs and a warp's rows fit in kRowChunks chunks of 32
+//   columns), and the grid is tiles x row blocks (blockIdx.y).  At S1's
+//   largest batch (7,500 x 100 at 256 x 256 tiles) that is 30 x 32 = 960
+//   blocks, where one block per tile gave 30.  The block stages its rows'
+//   and the tile's columns' derived terms in shared memory.  Lane l of a
+//   warp solves columns l, l + 32, ... of each of the warp's rows once;
+//   one __ballot_sync per (row, 32-column chunk) slot gives the slot's hit
+//   mask, kept in registers with the lanes' intervals for the first
+//   kRowChunks slots (later slots, only in tiles wider than 256 columns,
+//   are solved again in the write pass).  A block exclusive scan of the
+//   warps' hit totals gives each warp's offset, thread 0 claims the
+//   block's base with one atomicAdd on `count`, and a hit lane writes at
+//   base + warp offset + hits of the warp's earlier slots + popc(mask &
+//   lanes below).  So each block fills one contiguous run of slots, rows
+//   ascending and columns ascending within a row: the row-loop append at
+//   block granularity.  Slots past `capacity` are dropped and `count`
+//   stays exact; the order of the blocks' runs changes from run to run.
+//   The armed variant runs the tile box test in every block of the tile;
+//   only row block 0 counts a dead tile in `pruned`.
+//   Bound: the chunk kernel's (float32 arithmetic, ~45 operations per
+//   temporally overlapping pair).
+//   Left on the table: lanes past the last column idle in a row's last
+//   chunk (100 columns fill 4 chunks of 32: 22 % of the lanes), and the
+//   wrapper's six output fills, which take about as long as the kernel.
 //
 // distthresh_compact_live_rowloop_kernel  replaces
 //   distthresh_compact_live_pallas(append="rowloop") (:697, pallas_call at
-//   :782): the row-loop body over a live-tile list, one block per slot.
+//   :782): the same row-block body with blockIdx.x as the slot of a
+//   live-tile list (blockIdx.y the row block); slots >= n_live return at
+//   once.  Same bound, same gaps; besides, ptxas reports 16 bytes of
+//   spills here and none in the tile-grid kernel (likely the tile ids
+//   read from the list, which unlike blockIdx cannot be recomputed).
 //
 // distthresh_dense_kernel  replaces distthresh_pallas
-//   (repro/kernels/distthresh.py:214, pallas_call at :242).  One thread per
-//   (entry, query) pair in 32x8 blocks; writes t_enter, t_exit and int8 hit
-//   (intervals 0 where there is no hit).  Bound: the 9 bytes per pair it
-//   writes, ~2.7 us per 10^6 pairs at 3.35 TB/s.  Left on the table: each
-//   thread reloads its entry and query (L1 serves the repeats).
+//   (repro/kernels/distthresh.py:214, pallas_call at :242).  A 256-thread
+//   block takes a row-major span of the (C, Q) outputs: `rows` entry rows
+//   x `cols` = min(Q, 256) query columns, rows = max(1, 1,024 / cols); the
+//   grid is row blocks (x) x column blocks (y).  Where Q <= 256 a block's
+//   outputs are one contiguous span of each array.  The block stages its
+//   columns' and rows' derived terms (make_side once per column and once
+//   per row) in shared memory; thread t solves pairs t, t + 256, ... (at
+//   most 4) of the block's row-major pair list and writes t_enter, t_exit
+//   (0 where there is no hit) and the int8 hit, neighbouring lanes at
+//   neighbouring addresses.  Only a block's last round of pairs leaves
+//   lanes idle.
+//   Bound: the 9 bytes per pair it writes, ~2.7 us per 10^6 pairs at
+//   3.35 TB/s.  In practice it is bound by instruction issue: on S1's
+//   batches every pair overlaps in time, so each runs the whole solve,
+//   whose IEEE divisions and square root are sequences of many
+//   instructions with a slow-path check each.
+//   Left on the table: the int8 hit stores stay scalar (one byte a lane,
+//   32 bytes a warp; 16-byte vector stores of 4 pairs a thread gained
+//   nothing on the H100).
 //
 // Every launch function returns cudaGetLastError() of its launch.
 
@@ -312,105 +342,114 @@ __device__ __forceinline__ void compact_subtile(
   }
 }
 
-// Chunks of 32 columns whose results one warp keeps in registers
-// (qry_blk <= 256); a wider tile recomputes its row in a second pass.
+// (row, 32-column chunk) slots whose results one warp keeps in registers:
+// 8 chunks cover a 256-column tile; a wider tile solves its later chunks
+// again in the write pass.
 constexpr int kRowChunks = 8;
+constexpr int kRowWarps = kSubThreads / 32;
 
-// One (entry tile ti, query tile tj) of the row-loop compaction: one warp
-// per entry row, the block's warps striding over the tile's rows.  Lane l
-// solves columns l, l + 32, ...; one ballot per 32-column chunk gives the
-// row's hit mask, lane 0 claims the row's base with one atomicAdd on
-// `count`, and each hit lane writes at base + (hits of earlier chunks) +
-// (hits of lower lanes in its chunk), so columns stay in ascending order
-// within a row.  Rows past `capacity` are dropped; `count` stays exact.
-__device__ __forceinline__ void rowloop_tile(
-    int ti, int tj, const float* __restrict__ entries, int C,
-    const float* __restrict__ qT, long long ldq, int Q, float d,
-    int cand_blk, int qry_blk, int valid_c, int valid_q, int capacity,
-    int* __restrict__ e_idx, int* __restrict__ q_idx,
-    float* __restrict__ t_enter, float* __restrict__ t_exit,
-    int* __restrict__ count) {
-  extern __shared__ float smem[];  // 8 * qry_blk: derived query columns
+// Row block `blk` of (entry tile ti, query tile tj) of the row-loop
+// compaction: entry rows [ti * cand_blk + blk * rows, + rows) of the tile,
+// rows = kRowWarps * per_warp, warp w taking rows [w * per_warp, + per_warp)
+// of the block.  `ld` >= every tile's column count is the stride of the
+// staged query table, and per_warp * (the tile's chunks) <= kRowChunks
+// unless per_warp is 1.  Lane l solves columns l, l + 32, ... of each of
+// its warp's rows; one ballot per (row, chunk) slot gives the slot's hit
+// mask.  One atomicAdd on `count` per block; the block's hits fill one
+// contiguous run, rows ascending, columns ascending within a row.  Slots
+// past `capacity` are dropped; `count` stays exact.
+__device__ __forceinline__ void rowloop_block(
+    int ti, int tj, int blk, int per_warp, int ld,
+    const float* __restrict__ entries, int C, const float* __restrict__ qT,
+    long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
+    int valid_q, int capacity, int* __restrict__ e_idx,
+    int* __restrict__ q_idx, float* __restrict__ t_enter,
+    float* __restrict__ t_exit, int* __restrict__ count) {
+  // 8 * ld derived query columns, then 8 * rows derived entry rows.
+  extern __shared__ float smem[];
+  __shared__ int s_base;
+  const int rows = kRowWarps * per_warp;
+  const int r_tile = blk * rows;
+  const int row0 = ti * cand_blk + r_tile;
+  const int nrows =
+      min(rows, min(cand_blk - r_tile, min(C, valid_c) - row0));
+  if (nrows <= 0) return;                      // uniform across the block
   const int q0 = tj * qry_blk;
-  const int ncols =
-      stage_queries(tj, qT, ldq, Q, qry_blk, valid_q, smem, qry_blk);
-  const int nchunks = (ncols + 31) / 32;
+  const int ncols = stage_queries(tj, qT, ldq, Q, qry_blk, valid_q, smem, ld);
+  if (ncols == 0) return;
+  float* es = smem + 8 * ld;
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x)
+    stage_side(es, rows, r, load_entry(entries, row0 + r));
+  __syncthreads();
+
   const int lane = threadIdx.x & 31;
   const unsigned lanes_below = (1u << lane) - 1u;
-  const int nrows = min(cand_blk, min(C, valid_c) - ti * cand_blk);
+  const int nchunks = (ncols + 31) / 32;
+  const int wr = (threadIdx.x >> 5) * per_warp;  // the warp's first row
+  // Uniform across a warp (a warp past the block's rows has none), so
+  // every ballot below runs with all 32 lanes.
+  const int slots = max(0, min(per_warp, nrows - wr)) * nchunks;
   const float dd = d * d;
+  auto solve = [&](int s, float* a, float* b) {
+    const int r = s / nchunks;
+    const int k = (s - r * nchunks) * 32 + lane;
+    return k < ncols && interval_solve(staged_side(es, rows, wr + r),
+                                       staged_side(smem, ld, k), dd, a, b);
+  };
+  auto write = [&](int s, int dst, float a, float b) {
+    const int r = s / nchunks;
+    e_idx[dst] = row0 + wr + r;
+    q_idx[dst] = q0 + (s - r * nchunks) * 32 + lane;
+    t_enter[dst] = a;
+    t_exit[dst] = b;
+  };
 
-  // The warp index is uniform across a warp, so every ballot below runs
-  // with all 32 lanes.
-  for (int r = threadIdx.x >> 5; r < nrows; r += blockDim.x >> 5) {
-    const int row = ti * cand_blk + r;
-    const Side e = load_entry(entries, row);
-    unsigned mask[kRowChunks];
-    float te[kRowChunks], tx[kRowChunks];
-    int n_r = 0;
-    if (nchunks <= kRowChunks) {
+  // Each pair solved once.  The slots past kRowChunks are counted first,
+  // so that no register slot is live across their solves; the first
+  // kRowChunks slots' results stay in registers (the array indices are
+  // compile-time after unrolling).
+  int n = 0;
+  for (int s = kRowChunks; s < slots; ++s) {
+    float a, b;
+    n += __popc(__ballot_sync(0xffffffffu, solve(s, &a, &b)));
+  }
+  unsigned mask[kRowChunks];
+  float te[kRowChunks], tx[kRowChunks];
 #pragma unroll
-      for (int c = 0; c < kRowChunks; ++c) {
-        mask[c] = 0u;
-        if (c < nchunks) {
-          const int k = c * 32 + lane;
-          bool h = false;
-          if (k < ncols)
-            h = interval_solve(e, staged_side(smem, qry_blk, k), dd, &te[c],
-                               &tx[c]);
-          mask[c] = __ballot_sync(0xffffffffu, h);
-          n_r += __popc(mask[c]);
-        }
-      }
-    } else {
-      for (int c = 0; c < nchunks; ++c) {
-        const int k = c * 32 + lane;
-        float a, b;
-        const bool h = k < ncols &&
-            interval_solve(e, staged_side(smem, qry_blk, k), dd, &a, &b);
-        n_r += __popc(__ballot_sync(0xffffffffu, h));
-      }
+  for (int s = 0; s < kRowChunks; ++s) {
+    mask[s] = 0u;
+    if (s < slots) {
+      mask[s] = __ballot_sync(0xffffffffu, solve(s, &te[s], &tx[s]));
+      n += __popc(mask[s]);
     }
-    if (n_r == 0) continue;
-    int base = 0;
-    if (lane == 0) base = atomicAdd(count, n_r);
-    base = __shfl_sync(0xffffffffu, base, 0);
-    if (base >= capacity) continue;
+  }
 
-    int before = 0;  // hits of this row in earlier chunks
-    if (nchunks <= kRowChunks) {
+  // Offsets: a block scan of the warps' hit totals (lane 0 carries its
+  // warp's), one atomicAdd on `count` per block.
+  int total;
+  int dst0 = __shfl_sync(0xffffffffu,
+                         block_exclusive_scan(lane == 0 ? n : 0, &total), 0);
+  if (total == 0) return;
+  if (threadIdx.x == 0) s_base = atomicAdd(count, total);
+  __syncthreads();
+  dst0 += s_base;                              // the warp's first slot
+  if (dst0 >= capacity) return;                // uniform across the warp
 #pragma unroll
-      for (int c = 0; c < kRowChunks; ++c) {
-        if (c < nchunks) {
-          if ((mask[c] >> lane) & 1u) {
-            const int dst = base + before + __popc(mask[c] & lanes_below);
-            if (dst < capacity) {
-              e_idx[dst] = row;
-              q_idx[dst] = q0 + c * 32 + lane;
-              t_enter[dst] = te[c];
-              t_exit[dst] = tx[c];
-            }
-          }
-          before += __popc(mask[c]);
-        }
-      }
-    } else {
-      for (int c = 0; c < nchunks && base + before < capacity; ++c) {
-        const int k = c * 32 + lane;
-        float a, b;
-        const bool h = k < ncols &&
-            interval_solve(e, staged_side(smem, qry_blk, k), dd, &a, &b);
-        const unsigned m = __ballot_sync(0xffffffffu, h);
-        const int dst = base + before + __popc(m & lanes_below);
-        if (h && dst < capacity) {
-          e_idx[dst] = row;
-          q_idx[dst] = q0 + k;
-          t_enter[dst] = a;
-          t_exit[dst] = b;
-        }
-        before += __popc(m);
-      }
+  for (int s = 0; s < kRowChunks; ++s) {
+    if (s < slots) {
+      const int dst = dst0 + __popc(mask[s] & lanes_below);
+      if (((mask[s] >> lane) & 1u) && dst < capacity)
+        write(s, dst, te[s], tx[s]);
+      dst0 += __popc(mask[s]);
     }
+  }
+  for (int s = kRowChunks; s < slots && dst0 < capacity; ++s) {
+    float a, b;
+    const bool h = solve(s, &a, &b);
+    const unsigned m = __ballot_sync(0xffffffffu, h);
+    const int dst = dst0 + __popc(m & lanes_below);
+    if (h && dst < capacity) write(s, dst, a, b);
+    dst0 += __popc(m);
   }
 }
 
@@ -426,6 +465,24 @@ __device__ __forceinline__ bool tile_mbr_live(const float* em, const float* qm,
   return gap2 <= dp * dp;
 }
 
+// The armed early-out of logical tile (ti, tj) for one of its blocks:
+// every block of the tile takes the same decision on the same boxes, and
+// only the tile's first block (blockIdx.y == 0) counts a dead tile, so
+// `pruned` counts logical tiles.  Every thread of the block must call it.
+__device__ __forceinline__ bool tile_live(int ti, int tj,
+                                          const float* __restrict__ e_mbr,
+                                          const float* __restrict__ q_mbr,
+                                          float d_prune,
+                                          int* __restrict__ pruned) {
+  __shared__ int s_live;
+  if (threadIdx.x == 0) {
+    s_live = tile_mbr_live(e_mbr + 8 * ti, q_mbr + 8 * tj, d_prune);
+    if (!s_live && blockIdx.y == 0) atomicAdd(pruned, 1);
+  }
+  __syncthreads();
+  return s_live;
+}
+
 template <bool kPrune>
 __global__ void __launch_bounds__(kSubThreads) distthresh_compact_kernel(
     const float* __restrict__ entries, int C, const float* __restrict__ qT,
@@ -437,17 +494,7 @@ __global__ void __launch_bounds__(kSubThreads) distthresh_compact_kernel(
     int* __restrict__ count, int* __restrict__ pruned) {
   const int ti = blockIdx.x / ntq;
   const int tj = blockIdx.x % ntq;
-  if (kPrune) {
-    // Every sub-tile of a tile takes the same decision; sub-tile 0 counts
-    // the dead tile once.
-    __shared__ int s_live;
-    if (threadIdx.x == 0) {
-      s_live = tile_mbr_live(e_mbr + 8 * ti, q_mbr + 8 * tj, d_prune);
-      if (!s_live && blockIdx.y == 0) atomicAdd(pruned, 1);
-    }
-    __syncthreads();
-    if (!s_live) return;
-  }
+  if (kPrune && !tile_live(ti, tj, e_mbr, q_mbr, d_prune, pruned)) return;
   compact_subtile(ti, tj, blockIdx.y, sub_rows, ld, entries, C, qT, ldq, Q, d,
                   cand_blk, qry_blk, valid_c, valid_q, capacity, e_idx,
                   q_idx, t_enter, t_exit, count);
@@ -468,89 +515,150 @@ __global__ void __launch_bounds__(kSubThreads) distthresh_compact_live_kernel(
                   valid_q, capacity, e_idx, q_idx, t_enter, t_exit, count);
 }
 
+
 template <bool kPrune>
-__global__ void distthresh_compact_rowloop_kernel(
-    const float* __restrict__ entries, int C, const float* __restrict__ qT,
-    long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
-    int valid_q, int capacity, int ntq, const float* __restrict__ e_mbr,
-    const float* __restrict__ q_mbr, float d_prune, int* __restrict__ e_idx,
-    int* __restrict__ q_idx, float* __restrict__ t_enter,
-    float* __restrict__ t_exit, int* __restrict__ count,
-    int* __restrict__ pruned) {
+__global__ void __launch_bounds__(kSubThreads)
+    distthresh_compact_rowloop_kernel(
+        const float* __restrict__ entries, int C, const float* __restrict__ qT,
+        long long ldq, int Q, float d, int cand_blk, int qry_blk,
+        int valid_c, int valid_q, int capacity, int ntq, int per_warp,
+        int ld, const float* __restrict__ e_mbr,
+        const float* __restrict__ q_mbr, float d_prune,
+        int* __restrict__ e_idx, int* __restrict__ q_idx,
+        float* __restrict__ t_enter, float* __restrict__ t_exit,
+        int* __restrict__ count, int* __restrict__ pruned) {
   const int ti = blockIdx.x / ntq;
   const int tj = blockIdx.x % ntq;
-  if (kPrune) {
-    __shared__ int s_live;
-    if (threadIdx.x == 0) {
-      s_live = tile_mbr_live(e_mbr + 8 * ti, q_mbr + 8 * tj, d_prune);
-      if (!s_live) atomicAdd(pruned, 1);
-    }
-    __syncthreads();
-    if (!s_live) return;
-  }
-  rowloop_tile(ti, tj, entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c,
-               valid_q, capacity, e_idx, q_idx, t_enter, t_exit, count);
+  if (kPrune && !tile_live(ti, tj, e_mbr, q_mbr, d_prune, pruned)) return;
+  rowloop_block(ti, tj, blockIdx.y, per_warp, ld, entries, C, qT, ldq, Q, d,
+                cand_blk, qry_blk, valid_c, valid_q, capacity, e_idx, q_idx,
+                t_enter, t_exit, count);
 }
 
-__global__ void distthresh_compact_live_rowloop_kernel(
-    const float* __restrict__ entries, int C, const float* __restrict__ qT,
-    long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
-    int valid_q, int capacity, const int* __restrict__ tile_i,
-    const int* __restrict__ tile_j, const int* __restrict__ n_live,
-    int* __restrict__ e_idx, int* __restrict__ q_idx,
-    float* __restrict__ t_enter, float* __restrict__ t_exit,
-    int* __restrict__ count) {
+__global__ void __launch_bounds__(kSubThreads)
+    distthresh_compact_live_rowloop_kernel(
+        const float* __restrict__ entries, int C, const float* __restrict__ qT,
+        long long ldq, int Q, float d, int cand_blk, int qry_blk,
+        int valid_c, int valid_q, int capacity, int per_warp, int ld,
+        const int* __restrict__ tile_i, const int* __restrict__ tile_j,
+        const int* __restrict__ n_live, int* __restrict__ e_idx,
+        int* __restrict__ q_idx, float* __restrict__ t_enter,
+        float* __restrict__ t_exit, int* __restrict__ count) {
   const int slot = blockIdx.x;
   if (slot >= *n_live) return;
-  rowloop_tile(tile_i[slot], tile_j[slot], entries, C, qT, ldq, Q, d,
-               cand_blk, qry_blk, valid_c, valid_q, capacity, e_idx, q_idx,
-               t_enter, t_exit, count);
+  rowloop_block(tile_i[slot], tile_j[slot], blockIdx.y, per_warp, ld, entries,
+                C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
+                capacity, e_idx, q_idx, t_enter, t_exit, count);
 }
 
-__global__ void distthresh_dense_kernel(const float* __restrict__ entries,
-                                        int C, const float* __restrict__ qT,
-                                        long long ldq, int Q, float d,
-                                        float* __restrict__ t_enter,
-                                        float* __restrict__ t_exit,
-                                        int8_t* __restrict__ hit) {
-  const int col = blockIdx.y * blockDim.x + threadIdx.x;
-  const int row = blockIdx.x * blockDim.y + threadIdx.y;
-  if (row >= C || col >= Q) return;
-  const float* p = qT + col;
-  Side q = make_side(p[0], p[ldq], p[2 * ldq], p[3 * ldq], p[4 * ldq],
-                     p[5 * ldq], p[6 * ldq], p[7 * ldq]);
-  Side e = load_entry(entries, row);
-  float te = 0.0f, tx = 0.0f;
-  bool h = interval_solve(e, q, d * d, &te, &tx);
-  const size_t o = (size_t)row * Q + col;
-  t_enter[o] = h ? te : 0.0f;
-  t_exit[o] = h ? tx : 0.0f;
-  hit[o] = h ? 1 : 0;
+// Block (blockIdx.x, blockIdx.y) of the dense kernel: entry rows
+// [blockIdx.x * rows, + rows) x query columns [blockIdx.y * cols, + cols),
+// rows * cols <= kSubPairs.
+__global__ void __launch_bounds__(kSubThreads) distthresh_dense_kernel(
+    const float* __restrict__ entries, int C, const float* __restrict__ qT,
+    long long ldq, int Q, float d, int rows, int cols,
+    float* __restrict__ t_enter, float* __restrict__ t_exit,
+    int8_t* __restrict__ hit) {
+  // 8 * cols derived query columns, then 8 * rows derived entry rows.
+  extern __shared__ float smem[];
+  const int r0 = blockIdx.x * rows;
+  const int c0 = blockIdx.y * cols;
+  const int nr = min(rows, C - r0);
+  const int nc = stage_queries(blockIdx.y, qT, ldq, Q, cols, Q, smem, cols);
+  float* es = smem + 8 * cols;
+  for (int r = threadIdx.x; r < nr; r += blockDim.x)
+    stage_side(es, rows, r, load_entry(entries, r0 + r));
+  __syncthreads();
+
+  const int pairs = nr * nc;
+  const float dd = d * d;
+  // (row, column) of pair p = threadIdx.x + k * 256, stepped without a
+  // division per pair.
+  int r = threadIdx.x / nc;
+  int c = threadIdx.x - r * nc;
+  const int dr = kSubThreads / nc;
+  const int dc = kSubThreads - dr * nc;
+#pragma unroll
+  for (int k = 0; k < kPairsPerThread; ++k) {
+    const int p = threadIdx.x + k * kSubThreads;
+    if (k > 0) {
+      r += dr;
+      c += dc;
+      if (c >= nc) {
+        c -= nc;
+        ++r;
+      }
+    }
+    if (p < pairs) {
+      float te = 0.0f, tx = 0.0f;
+      const bool h = interval_solve(staged_side(es, rows, r),
+                                    staged_side(smem, cols, c), dd, &te, &tx);
+      const size_t o = (size_t)(r0 + r) * Q + c0 + c;
+      t_enter[o] = h ? te : 0.0f;
+      t_exit[o] = h ? tx : 0.0f;
+      hit[o] = h ? 1 : 0;
+    }
+  }
 }
 
-int round_up_warp(int n) { return (n + 31) / 32 * 32; }
+// The most columns a tile of the batch can have: the stride of the
+// compact kernels' staged query table.
+int tile_ld(int Q, int qry_blk, int valid_q) {
+  return std::max(1, std::min(qry_blk, std::min(Q, valid_q)));
+}
 
-// Sub-tile geometry of the fused compaction for a batch: the most columns
-// a tile can have (the staged table's stride), the entry rows per
-// sub-tile, and the sub-tiles per tile.
+// Entry rows of the batch's fullest tile.
+int tile_rows(int C, int cand_blk, int valid_c) {
+  return std::max(1, std::min(cand_blk, std::min(C, valid_c)));
+}
+
+// Sub-tile geometry of the fused compaction for a batch: the staged
+// table's stride, the entry rows per sub-tile, and the sub-tiles per tile.
 struct SubTiles {
   int ld, rows, per_tile;
   SubTiles(int C, int Q, int cand_blk, int qry_blk, int valid_c,
            int valid_q) {
-    ld = std::max(1, std::min(qry_blk, std::min(Q, valid_q)));
+    ld = tile_ld(Q, qry_blk, valid_q);
     rows = std::max(1, std::min(cand_blk, kSubPairs / ld));
-    const int tile_rows =
-        std::max(1, std::min(cand_blk, std::min(C, valid_c)));
-    per_tile = (tile_rows + rows - 1) / rows;
+    per_tile = (tile_rows(C, cand_blk, valid_c) + rows - 1) / rows;
   }
   size_t smem() const { return sizeof(float) * 8 * (size_t)(ld + rows); }
 };
 
-// Row-loop blocks: one warp per row in flight, at most 8 warps.
-int rowloop_threads(int cand_blk) {
-  const int t = round_up_warp(cand_blk);
-  return t < 256 ? t : 256;
-}
+// Row-block geometry of the row-loop compaction for a batch: the staged
+// table's stride, the rows per warp (about kSubPairs pairs per block, a
+// warp's slots in kRowChunks registers where the tile allows, no more
+// warps' worth of rows than the tile has), the rows per block, and the row
+// blocks per tile.
+struct RowBlocks {
+  int ld, per_warp, rows, per_tile;
+  RowBlocks(int C, int Q, int cand_blk, int qry_blk, int valid_c,
+            int valid_q) {
+    ld = tile_ld(Q, qry_blk, valid_q);
+    const int chunks = (ld + 31) / 32;
+    const int tr = tile_rows(C, cand_blk, valid_c);
+    per_warp = std::max(
+        1, std::min(kSubPairs / (kRowWarps * ld),
+                    std::min(kRowChunks / chunks,
+                             (tr + kRowWarps - 1) / kRowWarps)));
+    rows = kRowWarps * per_warp;
+    per_tile = (tr + rows - 1) / rows;
+  }
+  size_t smem() const { return sizeof(float) * 8 * (size_t)(ld + rows); }
+};
+
+// Dense geometry: `cols` = min(Q, 256) query columns x `rows` entry rows
+// per block, rows on grid x (y stops at 65,535).
+struct DenseBlocks {
+  int rows, cols;
+  dim3 grid;
+  DenseBlocks(int C, int Q) {
+    cols = std::max(1, std::min(Q, kSubThreads));
+    rows = std::max(1, kSubPairs / cols);
+    grid = dim3((C + rows - 1) / rows, (Q + cols - 1) / cols);
+  }
+  size_t smem() const { return sizeof(float) * 8 * (size_t)(rows + cols); }
+};
 
 }  // namespace
 
@@ -559,11 +667,17 @@ extern "C" {
 int distthresh_dense_launch(const float* entries, int C, const float* qT,
                             long long ldq, int Q, float d, float* t_enter,
                             float* t_exit, int8_t* hit, void* stream) {
-  dim3 block(32, 8);
-  dim3 grid((C + 7) / 8, (Q + 31) / 32);  // rows on x: y stops at 65535
-  distthresh_dense_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      entries, C, qT, ldq, Q, d, t_enter, t_exit, hit);
+  const DenseBlocks g(C, Q);
+  distthresh_dense_kernel<<<g.grid, kSubThreads, g.smem(),
+                            (cudaStream_t)stream>>>(
+      entries, C, qT, ldq, Q, d, g.rows, g.cols, t_enter, t_exit, hit);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the dense kernel's grid for a (C, Q) batch.
+int distthresh_dense_blocks(int C, int Q) {
+  const DenseBlocks g(C, Q);
+  return (int)(g.grid.x * g.grid.y);
 }
 
 // Sub-tiles per logical tile of the fused compaction's grid (blocks:
@@ -571,6 +685,13 @@ int distthresh_dense_launch(const float* entries, int C, const float* qT,
 int distthresh_compact_subtiles(int C, int Q, int cand_blk, int qry_blk,
                                 int valid_c, int valid_q) {
   return SubTiles(C, Q, cand_blk, qry_blk, valid_c, valid_q).per_tile;
+}
+
+// Row blocks per logical tile of the row-loop compaction's grid (blocks:
+// this times the tiles, or the live-tile slots).
+int distthresh_compact_rowloop_blocks(int C, int Q, int cand_blk,
+                                      int qry_blk, int valid_c, int valid_q) {
+  return RowBlocks(C, Q, cand_blk, qry_blk, valid_c, valid_q).per_tile;
 }
 
 int distthresh_compact_launch(const float* entries, int C, const float* qT,
@@ -625,19 +746,21 @@ int distthresh_compact_rowloop_launch(
     int* pruned, void* stream) {
   const int ntc = (C + cand_blk - 1) / cand_blk;
   const int ntq = (Q + qry_blk - 1) / qry_blk;
-  const size_t smem = sizeof(float) * 8 * (size_t)qry_blk;
-  const int threads = rowloop_threads(cand_blk);
+  const RowBlocks rb(C, Q, cand_blk, qry_blk, valid_c, valid_q);
+  const dim3 grid(ntc * ntq, rb.per_tile);
   cudaStream_t s = (cudaStream_t)stream;
   if (e_mbr != nullptr) {
-    distthresh_compact_rowloop_kernel<true><<<ntc * ntq, threads, smem, s>>>(
+    distthresh_compact_rowloop_kernel<true><<<grid, kSubThreads, rb.smem(),
+                                              s>>>(
         entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
-        capacity, ntq, e_mbr, q_mbr, d_prune, e_idx, q_idx, t_enter, t_exit,
-        count, pruned);
+        capacity, ntq, rb.per_warp, rb.ld, e_mbr, q_mbr, d_prune, e_idx,
+        q_idx, t_enter, t_exit, count, pruned);
   } else {
-    distthresh_compact_rowloop_kernel<false><<<ntc * ntq, threads, smem, s>>>(
+    distthresh_compact_rowloop_kernel<false><<<grid, kSubThreads, rb.smem(),
+                                               s>>>(
         entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
-        capacity, ntq, nullptr, nullptr, 0.0f, e_idx, q_idx, t_enter, t_exit,
-        count, pruned);
+        capacity, ntq, rb.per_warp, rb.ld, nullptr, nullptr, 0.0f, e_idx,
+        q_idx, t_enter, t_exit, count, pruned);
   }
   return (int)cudaGetLastError();
 }
@@ -648,12 +771,13 @@ int distthresh_compact_live_rowloop_launch(
     int capacity, const int* tile_i, const int* tile_j, const int* n_live,
     int n_slots, int* e_idx, int* q_idx, float* t_enter, float* t_exit,
     int* count, void* stream) {
-  const size_t smem = sizeof(float) * 8 * (size_t)qry_blk;
-  distthresh_compact_live_rowloop_kernel<<<n_slots,
-                                           rowloop_threads(cand_blk), smem,
+  const RowBlocks rb(C, Q, cand_blk, qry_blk, valid_c, valid_q);
+  const dim3 grid(n_slots, rb.per_tile);
+  distthresh_compact_live_rowloop_kernel<<<grid, kSubThreads, rb.smem(),
                                            (cudaStream_t)stream>>>(
       entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
-      capacity, tile_i, tile_j, n_live, e_idx, q_idx, t_enter, t_exit, count);
+      capacity, rb.per_warp, rb.ld, tile_i, tile_j, n_live, e_idx, q_idx,
+      t_enter, t_exit, count);
   return (int)cudaGetLastError();
 }
 

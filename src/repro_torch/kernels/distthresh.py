@@ -25,11 +25,12 @@ Two things differ from the TPU kernels, neither visible in the results:
   row order.  Hopper blocks run in parallel and append with one
   ``atomicAdd`` per block: ``append="chunk"`` cuts each tile into
   sub-tiles of at most 1,024 pairs, one block each (the paper's §5
-  ``atomic_inc`` per sub-tile), and ``append="rowloop"`` claims per entry
-  row (in column order inside a row).  So the order of rows changes from
-  run to run.  The plain versions emit the TPU's order (tiles in grid
-  order, query tiles innermost, row-major inside a tile), which both
-  append modes give on the TPU.  Consumers sort canonically.
+  ``atomic_inc`` per sub-tile), and ``append="rowloop"`` into row blocks
+  of 8 warps, one warp per entry row, whose hits fill one run (rows
+  ascending, columns ascending within a row).  So the order of rows
+  changes from run to run.  The plain versions emit the TPU's order
+  (tiles in grid order, query tiles innermost, row-major inside a tile),
+  which both append modes give on the TPU.  Consumers sort canonically.
 * The kernels mask rows ``>= valid_c`` and columns ``>= valid_q``
   themselves and take any ``C``/``Q``: no pad rows are needed, and a
   ragged last tile is simply shorter.  ``queries_t`` may be a column
@@ -52,9 +53,8 @@ from repro_torch.kernels._launch import stream as _stream
 DEFAULT_CAND_BLK = 256
 DEFAULT_QRY_BLK = 256
 
-#: Largest tile edge the CUDA kernels take: the row-loop kernels' shared
-#: query stage holds ``qry_blk`` columns, and the chunk kernels' sub-tiles
-#: at most 1,024 pairs.
+#: Largest tile edge the CUDA kernels take: the compact kernels' shared
+#: query stage holds up to ``qry_blk`` columns (32 KB at 1,024).
 MAX_BLK = 1024
 
 #: append modes of the fused compaction wrappers (the reference's
@@ -129,8 +129,9 @@ def distthresh_dense(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
                      qry_blk: int = DEFAULT_QRY_BLK, device="cuda"):
     """Dense (C, Q) ``(t_enter, t_exit, hit)``: hit is int8 and the
     intervals are zero where it is 0.  ``cand_blk``/``qry_blk`` shape only
-    the plain version's signature; the CUDA kernel runs one thread per
-    pair in 32×8 blocks."""
+    the plain version's signature; the CUDA kernel runs 256-thread blocks
+    over row-major spans of min(Q, 256) columns × 1,024 / that many rows,
+    each side's derived terms staged once per block."""
     c, q = _check_inputs(entries, queries_t, cand_blk, qry_blk)
     if not _kernel_target(entries, device):
         return distthresh_dense_plain(entries, queries_t, d,
@@ -180,16 +181,17 @@ def distthresh_compact(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
       cand_blk / qry_blk: the (entry, query) tile of the early-out and
         of the plain version's order; the chunk kernel runs each tile as
         sub-tiles of at most 1,024 pairs, one 256-thread block each, and
-        the row-loop kernel one block per tile.
+        the row-loop kernel as row blocks of 8 warps (about 1,024 pairs).
       valid_c / valid_q: rows/columns at or past them are masked out.
       e_mbr / q_mbr / d_prune: the tile-level early-out, all three or
         none.  ``e_mbr`` is (ceil(C/cand_blk), 8) per entry tile
         ``(lo_xyz, hi_xyz, 0, 0)``, ``q_mbr`` the same per query tile; a
         tile whose boxes lie farther apart than ``d_prune`` is skipped and
         counted in ``pruned``.
-      append: ``"chunk"`` (each pair solved once, one atomic per
-        sub-tile) or ``"rowloop"`` (one warp per entry row, one atomic per
-        row); the same rows, the same counters.
+      append: ``"chunk"`` (threads over a sub-tile's pairs, one atomic
+        per sub-tile) or ``"rowloop"`` (one warp per entry row, one atomic per
+        row block); each pair solved once, the same rows, the same
+        counters.
 
     Returns ``(entry_idx, query_idx, t_enter, t_exit, count, pruned)``:
     four (capacity,) buffers (int32 -1 pad, float32 0 pad) and two 0-dim
@@ -258,9 +260,8 @@ def distthresh_compact_live(entries: torch.Tensor, queries_t: torch.Tensor,
 
     ``tile_i`` / ``tile_j`` are (S,) int32 entry- and query-tile ids in
     grid order (query tiles innermost); slots at or past ``n_live`` ((1,)
-    int32, read on the device) are skipped.  The chunk kernel runs each
-    slot's tile as sub-tiles (as in :func:`distthresh_compact`), the
-    row-loop kernel one block per slot.
+    int32, read on the device) are skipped.  Each slot's tile runs as the
+    kernel's sub-tiles or row blocks, as in :func:`distthresh_compact`.
     Returns ``(entry_idx, query_idx, t_enter, t_exit, count)`` — no
     ``pruned`` counter: the caller knows ``num_tiles - n_live``.
     """

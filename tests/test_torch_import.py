@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` loads neither ``jax`` nor the
-reference package, and no source of it (nor ``chip_smoke.py``) imports
-either.  Also pins the device rule: a CUDA request without CUDA raises."""
+reference package, and no source of it (nor ``chip_smoke.py`` or
+``chip_compare.py``) imports either.  Also pins the device rule: a CUDA
+request without CUDA raises."""
 import ast
 import os
 import pathlib
@@ -60,7 +61,7 @@ def test_import_loads_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    "path", PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))

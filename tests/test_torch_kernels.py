@@ -136,6 +136,39 @@ def test_dense_plain_equals_pallas(blk):
         np.testing.assert_allclose(_np(g), np.asarray(w), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("c, q, offset", [(20, 300, None), (20, 300, 29),
+                                           (9, 600, 5)])
+def test_dense_plain_wide_and_sliced_equals_pallas(c, q, offset):
+    """More than 256 query columns (several of the dense kernel's column
+    blocks) and ``queries_t`` as a column slice of a wider (8, N) array,
+    read through its row stride.  Hit masks equal the reference's padded
+    Pallas launch; intervals equal the reference oracle bit for bit (at
+    6,000 pairs a near-tangent pair's endpoint moves past ``RTOL`` under
+    the interpret mode's FMA contraction, see the module docstring)."""
+    rng = np.random.default_rng(c + q + (offset or 0))
+    e = random_segments(rng, c, box=10.0).packed()
+    wide = random_segments(rng, q + 2 * (offset or 0), box=10.0).packed()
+    d = np.float32(3.0)
+    qt = torch.from_numpy(np.ascontiguousarray(wide.T))
+    if offset is not None:
+        qt = qt[:, offset:offset + q]
+        assert qt.stride(0) == wide.shape[0] and not qt.is_contiguous()
+    got = dt.distthresh_dense(_t(e), qt, d, device=CPU)
+    q_np = wide[(offset or 0):(offset or 0) + q]
+    pad_t = max(e[:, 7].max(), q_np[:, 7].max()) + 1.0
+    want = jdt.distthresh_pallas(np.asarray(jops._pad_rows(e, 8, pad_t)),
+                                 np.asarray(jops._pad_rows(q_np, 128,
+                                                           pad_t)).T,
+                                 d, cand_blk=8, qry_blk=128)
+    hit = np.asarray(want[2])[:c, :q]
+    assert hit.sum() > 0
+    np.testing.assert_array_equal(_np(got[2]), hit)
+    oracle = jref.interaction_tile(e, q_np, d)
+    np.testing.assert_array_equal(np.asarray(oracle[2]), hit.astype(bool))
+    for g, w in zip(got[:2], oracle[:2]):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+
+
 def _assert_rows_equal(got, want, n):
     """Exact indices in the same order, intervals within tolerance."""
     for k in (0, 1):
@@ -200,6 +233,38 @@ def test_compact_plain_armed_equals_pallas(blk, append):
     _assert_rows_equal(got, want, int(want[4]))
     assert int(want[4]) > 0
     assert int(got[5]) == int(want[5]) > 0        # tiles were pruned
+
+
+@pytest.mark.parametrize("armed", [False, True], ids=["unarmed", "armed"])
+@pytest.mark.parametrize("capacity", [8192, 301], ids=["ample", "cut"])
+def test_rowloop_plain_multiblock_equals_pallas(armed, capacity):
+    """The row loop at ``cand_blk`` 64 × ``qry_blk`` 128 with 192 query
+    columns: the CUDA kernel runs each 64-row tile as 8 row blocks of 8
+    rows (1,024 pairs / 8 warps / 128 columns = 1 row per warp), two query
+    tiles, the second ragged.  The plain twin against the reference's
+    ``append="rowloop"``, with capacity ample or cut, armed with dead
+    tiles or not."""
+    e, q, d = _clustered(64)
+    cb, qb = 64, 128
+    pad_t = max(e[:, 7].max(), q[:, 7].max()) + 1.0
+    q_pad = np.asarray(jops._pad_rows(q, qb, pad_t))
+    kw = dict(capacity=capacity, cand_blk=cb, qry_blk=qb, valid_c=len(e),
+              valid_q=len(q), append="rowloop")
+    arm, jarm = {}, {}
+    if armed:
+        e_mbr, q_mbr, d_prune = ops._host_tile_prune(e, q, d, cb, qb)
+        arm = dict(e_mbr=_t(e_mbr), q_mbr=_t(q_mbr), d_prune=d_prune)
+        jarm = dict(e_mbr=e_mbr, q_mbr=q_mbr, d_prune=d_prune)
+    got = dt.distthresh_compact(_t(e), _t(q_pad.T), d, device=CPU, **kw,
+                                **arm)
+    want = jdt.distthresh_compact_pallas(e, q_pad.T, d, **kw, **jarm)
+    n = int(want[4])
+    assert n > capacity if capacity == 301 else 0 < n <= capacity
+    if n > capacity:
+        got = tuple(x[:capacity] for x in got[:4]) + got[4:]
+    _assert_rows_equal(got, want, n)
+    assert int(got[5]) == int(want[5])
+    assert (int(want[5]) > 0) == armed
 
 
 @pytest.mark.parametrize("append", APPENDS)
