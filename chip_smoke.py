@@ -41,11 +41,23 @@ Phases, each printing one JSON line (``"phase": ...``):
    ``compaction="dense"`` (phase main_dense); then one warm execution of
    the main path's plan under ``torch.profiler`` (device busy share,
    device time by kernel), and one of the dense path's (profile_dense).
+   The profiles execute the plans phase main ran.  Then phase shard:
+   the same S1 query through ``backend="shard"`` with the kernels on the
+   default devices (one pod on the card), its plan once more through a
+   ``PodRouter``, and the same plan on 4 pods sharing the card with
+   sparse dispatch; each equal to phase main's rows, launching only
+   ``distthresh_compact`` once per live pod per dispatch, with ≤ 2 syncs
+   per group, no duplicate pair and ``RoutingStats`` covering every
+   batch; the 1-pod plan once more under ``torch.profiler`` (busy
+   share).
 5. modes   — C1 and C3 at scale 0.1 (C3 as the README configures it),
    pruning none/spatial/hierarchical × compaction
    fused/fused_rowloop/dense, all equal to the torch backend and the
    row-loop rows identical to the fused rows; then S2 at scale 0.02
-   against ``backend="brute"``.
+   against ``backend="brute"``.  Then phase shard_modes: the same C1 and
+   C3 matrix through ``backend="shard"`` on 4 pods, equal to the
+   single-device rows of each mode, sparse dispatch on and off
+   byte-identical (C3 hierarchical launches ``distthresh_compact_live``).
 6. serve   — the serving path on the same S1 database at scale 1.0:
    ``db.broker(backend="kernel")`` with a ``SliceCache`` and a
    ``RetryPolicy(degrade_after=1)``, the 100 query trajectories as 4
@@ -60,9 +72,18 @@ Phases, each printing one JSON line (``"phase": ...``):
    1's queries rejected under a deadline below the fitted model's priced
    time and served under one above it (phase fit).  Ticket 2 runs once
    more under ``torch.profiler`` on a broker without a cache
-   (profile_ticket2: its device time by kernel).
+   (profile_ticket2: its device time by kernel).  Then phase
+   shard_serve: ``db.broker(backend="shard")`` on 4 pods, the same 4
+   tickets (slices, ``ticket.routing``, union equal to phase shard's
+   rows), and ticket 2 again under a ``shard.pod`` dropout, re-routed
+   (stage ``"route"``) through the dense kernel with the same rows.
 7. stream  — ``db.query_stream(backend="kernel")`` on S1 at scale 0.3
-   against ``db.query``.
+   against ``db.query``; then phase shard_stream: ``query_stream(
+   backend="shard")`` on 4 pods with ``SchedulerStats.routing``; then
+   phase rtree: S1 at ``RTREE_SCALE`` through ``backend="rtree"`` (the
+   paper's §7.3 CPU baseline, on the host) with 1 thread and the host's
+   cores, each against ``backend="kernel"``: both walls (the paper's
+   GPU-versus-R-tree speedup on this machine) and the host CPU's name.
 8. llm     — LLM serving: granite-3-2b at full width and depth (40
    layers, bf16, seeded random weights made on the card) through
    ``ServeEngine.generate``: 8 seeded prompts of 64 to 1,000 tokens
@@ -81,10 +102,12 @@ Phases, each printing one JSON line (``"phase": ...``):
    (``library_ms``, timed here only), and the float32 flash kernel at the
    same shape in float32 (phase timing_flash_f32).
 
-Every ``backend="kernel"`` run sets the launch counters to 0 just before
-it and reads them just after (``kernel_path``, and per ticket in phase
-serve): it fails unless the path's own kernel launched, no other kernel
-did, and (on ``db.query``) the launches match the dispatches.
+Every ``backend="kernel"`` or ``"shard"`` run sets the launch counters
+to 0 just before it and reads them just after (``kernel_path``,
+``shard_query``, and per ticket in phases serve and shard_serve): it
+fails unless the path's own kernel launched, no other kernel did, and
+(on ``db.query``) the launches match the dispatches (for the shard
+backend, the live pods' dispatches).
 
 Then the kernel table (``{"kernels": [...]}``), the ``nvidia-smi`` name
 and power-limit line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -170,7 +193,14 @@ def source(name: str) -> str:
     return f"src/repro_torch/kernels/csrc/{cu}.cu"
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also says when it ended (``end_s``,
+    seconds since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "end_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -671,6 +701,15 @@ def kernel_path(db, label: str, require: set, **kw):
     return res, wall, counts
 
 
+def warm_up(db) -> None:
+    """One untimed ``backend="kernel"`` query of the first query
+    trajectory: the path's first-call costs without a full plan."""
+    q = db.scenario_queries
+    q = q.take(np.nonzero(q.traj_id == q.traj_id[0])[0])
+    db.query(q, db.scenario_d, backend="kernel")
+    torch.cuda.synchronize()
+
+
 def main_path(dev, card):
     """S1 at scale 1.0 under the default policy (the main path), then the
     same query with ``compaction="dense"`` (the dense kernel's path), each
@@ -679,7 +718,7 @@ def main_path(dev, card):
     t0 = time.perf_counter()
     db = TrajectoryDB.from_scenario("S1", scale=1.0, device=dev)
     setup_s = time.perf_counter() - t0
-    timed_query(db, "kernel")                       # warm, untimed
+    warm_up(db)
     res, wall, counts = kernel_path(db, "S1 main path",
                                     {"distthresh_compact"})
     st = res.stats
@@ -711,7 +750,7 @@ def main_path(dev, card):
           "retries": dense_res.stats.total_retries,
           "syncs": dense_res.stats.num_syncs, "launches": dense_counts,
           "max_abs_err_vs_torch": dense_err, "card": card})
-    return db, res, counts, dense_counts
+    return db, res, wall, counts, dense_res, dense_counts
 
 
 def profiled(fn):
@@ -746,16 +785,16 @@ def profiled(fn):
         k: {"n": n, "us": us} for k, (n, us) in top}
 
 
-def profile_main(db, card, compaction=None):
-    """One warm execution of the main path's plan (planning excluded)
-    under ``torch.profiler``, or of the dense path's with
-    ``compaction="dense"`` (phase profile_dense): the device's busy share
-    of the execution's wall time, and device time by kernel / copy
-    name."""
-    q, d = db.scenario_queries, db.scenario_d
+def profile_main(db, res, card, compaction=None):
+    """One warm execution of the main path's plan (``res.plan``, the plan
+    phase main ran; planning excluded) under ``torch.profiler``, or of
+    the dense path's with ``compaction="dense"`` (phase profile_dense):
+    the device's busy share of the execution's wall time, and device time
+    by kernel / copy name."""
+    q, d = db._sorted(db.scenario_queries)[0], db.scenario_d
     pol = db.policy if compaction is None else db.policy.with_(
         compaction=compaction)
-    plan = db.plan(q, pol, d=d)
+    plan = res.plan
     eng = db.engine("kernel", pol)
     eng.execute(q, d, plan)
     torch.cuda.synchronize()
@@ -797,9 +836,10 @@ def profile_ticket2(db, card):
 def mode_matrix(dev, card):
     """C1 and C3 at scale 0.1, every pruning × compaction path against
     ``backend="torch"``, each path's launches counted on its own; then S2
-    at scale 0.02 against ``backend="brute"``."""
+    at scale 0.02 against ``backend="brute"``.  Returns the databases,
+    the launches and the rows per (scenario, mode)."""
     from repro_torch.api import ExecutionPolicy, TrajectoryDB
-    dbs, summary, path_counts = {}, {}, {}
+    dbs, summary, path_counts, results = {}, {}, {}, {}
     for name, pol in (("C1", ExecutionPolicy()),
                       ("C3", ExecutionPolicy(num_bins=8, index_kboxes=4,
                                              max_subranges=16))):
@@ -827,6 +867,7 @@ def mode_matrix(dev, card):
                 elif compaction == "fused_rowloop":
                     identical(res, fused, f"{name} {mode} vs fused")
                 path_counts[(name, mode)] = counts[mode]
+                results[(name, mode)] = res
         summary[name] = {"hits": len(base), "wall_s": walls,
                          "launches": counts}
     db = TrajectoryDB.from_scenario("S2", scale=0.02, device=dev)
@@ -836,7 +877,7 @@ def mode_matrix(dev, card):
     same_rows(res, brute, "S2 kernel vs brute")
     summary["S2"] = {"hits": len(res), "launches": counts}
     emit({"phase": "modes", "scenarios": summary, "card": card})
-    return dbs, path_counts
+    return dbs, path_counts, results
 
 
 # ----------------------------------------------------------------------
@@ -1047,7 +1088,7 @@ def fit_path(db, tickets, card):
 
 def stream_path(dev, card):
     """``db.query_stream(backend="kernel")`` on S1 at scale 0.3 against
-    ``db.query`` on the same database."""
+    ``db.query`` on the same database; returns both."""
     from repro_torch.api import TrajectoryDB
     db = TrajectoryDB.from_scenario("S1", scale=0.3, device=dev)
     q, d = db.scenario_queries, db.scenario_d
@@ -1072,6 +1113,381 @@ def stream_path(dev, card):
           "duplicates_dropped": st.duplicates_dropped,
           "scheduler_wall_s": st.wall_seconds, "launches": counts,
           "max_abs_err_vs_query": err, "card": card})
+    return db, base
+
+
+# ----------------------------------------------------------------------
+# The temporal-pod backend (backend="shard") and the R-tree baseline.
+# ----------------------------------------------------------------------
+#: Pods of the multi-pod runs: more pods than the card, so they share it
+#: round-robin (``repro_torch.core.distributed.pod_devices``).
+SHARD_PODS = 4
+
+
+def pod_launches(eng, plan, stats) -> int:
+    """Kernel launches a shard execution makes when each pod it runs
+    launches one kernel: per dispatched batch, its live pods (every pod
+    without sparse dispatch) times 1 + its overflow re-dispatches."""
+    n = 0
+    for b, bs in zip(plan.batches, stats.batches):
+        if not b.num_candidates:
+            continue
+        live = eng.ways
+        if eng.sparse:
+            live = sum(1 for first, last in eng.pod_slices
+                       if min(b.cand_last, last) >= max(b.cand_first, first))
+        n += live * (1 + bs.retries)
+    return n
+
+
+def check_shard_run(label: str, require: set, pol, eng, res, counts):
+    """A shard run's launches and rows: every kernel in ``require``
+    launched, no kernel outside the path's own did, the launches equal
+    the live pods' dispatches (overflow re-dispatches included) where
+    each pod launches one kernel, ≤ 2 syncs per group, and no (entry,
+    query) pair twice.  Returns the pod dispatches."""
+    allowed = allowed_kernels(pol.pruning, pol.compaction)
+    st = res.stats
+    check(set(counts) <= allowed, f"{label}: launched {counts}, only "
+          f"{sorted(allowed)} belong to this path")
+    for k in require:
+        check(counts.get(k, 0) > 0, f"{label}: {k} was not launched")
+    expected = pod_launches(eng, res.plan, st)
+    launched = sum(counts.values())
+    if len(allowed) == 1:
+        check(launched == expected,
+              f"{label}: {launched} launches for {expected} pod dispatches")
+    else:       # a pod whose tiles are all dead launches nothing
+        check(0 < launched <= expected,
+              f"{label}: {launched} launches for {expected} pod dispatches")
+    check(st.num_syncs <= 2 * st.num_groups,
+          f"{label}: {st.num_syncs} syncs for {st.num_groups} groups")
+    pairs = set(zip(res.entry_idx.tolist(), res.query_idx.tolist()))
+    check(len(pairs) == len(res), f"{label}: duplicate (entry, query) pairs")
+    return expected
+
+
+def shard_query(db, label: str, require: set, pol):
+    """One ``backend="shard"`` query with the launch counters set to 0
+    just before it and read just after, checked by
+    :func:`check_shard_run`."""
+    eng = db.backend("shard", pol).engine
+    reset_launches()
+    res, wall = timed_query(db, "shard", policy=pol)
+    counts = {k: n for k, n in launches().items() if n}
+    expected = check_shard_run(label, require, pol, eng, res, counts)
+    return res, wall, counts, expected
+
+
+def routed_run(db, label: str, pol, plan):
+    """``plan`` executed through a ``PodRouter`` over ``pol``'s shard
+    engine, launches counted on it alone and checked by
+    :func:`check_shard_run`: the result in the caller's query order,
+    the execution's wall, launches, pod dispatches and the router's
+    ``RoutingStats``."""
+    from repro_torch.api import QueryResult
+    from repro_torch.core.distributed import PodRouter
+    eng = db.backend("shard", pol).engine
+    qs, order = db._sorted(db.scenario_queries)
+    router = PodRouter(eng)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs, st = router.execute(qs, db.scenario_d, plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in launches().items() if n}
+    res = QueryResult.from_result_set(rs, order=order, d=db.scenario_d,
+                                      backend="shard", stats=st, plan=plan)
+    expected = check_shard_run(label, {"distthresh_compact"}, pol, eng, res,
+                               counts)
+    rt = router.stats
+    check(rt.num_pods == eng.ways and int(rt.pod_hits.sum()) == len(res)
+          and rt.batches == plan.num_batches,
+          f"{label}: routing {rt.num_pods} pods, {rt.batches} batches, "
+          f"{int(rt.pod_hits.sum())} pod hits")
+    if eng.ways > 1:
+        check(rt.pods_skipped > 0, f"{label}: no pod skipped")
+    return res, wall, counts, expected, rt
+
+
+def profile_shard(db, pol, plan):
+    """One warm execution of ``plan`` through a ``PodRouter`` under
+    ``torch.profiler``: the busy share and device time by name."""
+    from repro_torch.core.distributed import PodRouter
+    qs = db._sorted(db.scenario_queries)[0]
+    router = PodRouter(db.backend("shard", pol).engine)
+    (_, st), wall, busy, events, top = profiled(
+        lambda: router.execute(qs, db.scenario_d, plan))
+    return {"execute_wall_s": wall, "device_busy_s": busy,
+            "device_busy_share": busy / wall, "device_events": events,
+            "dispatch_s": st.dispatch_seconds, "sync_s": st.sync_seconds,
+            "device_us_by_name": top}
+
+
+def routing_summary(rt) -> dict:
+    return {"num_pods": rt.num_pods, "batches": rt.batches,
+            "mean_pods_per_batch": rt.mean_pods_per_batch,
+            "pods_skipped": rt.pods_skipped,
+            "padded_interactions_avoided": rt.padded_interactions_avoided,
+            "pod_hits": rt.pod_hits.tolist(), "hit_balance": rt.hit_balance}
+
+
+def shard_path(db, main_res, main_wall, card):
+    """S1 at scale 1.0 through ``backend="shard"`` with the kernels.
+
+    Run 1 pod: ``db.query`` on the default devices (one pod on the one
+    card), its plan executed once more through a ``PodRouter`` (its
+    ``RoutingStats``).  Run 4 pods: the same plan (the shard planner's
+    plan does not depend on the pods under spatial pruning) executed on 4
+    pods sharing the card with sparse dispatch, through a ``PodRouter``.
+    Each against phase main's rows; the 1-pod plan once more under
+    ``torch.profiler`` (one warm execution; a profile of the 4-pod run's
+    31,000 device events would take the script half a minute more).
+    Returns (4-pod result, its policy, launches per run)."""
+    pol1 = db.policy.with_(shard_use_kernel=True)
+    res1, wall1, n1, exp1 = shard_query(db, "S1 shard 1 pod",
+                                        {"distthresh_compact"}, pol1)
+    plan = res1.plan
+    _, exec1, _, _, rt1 = routed_run(db, "S1 shard 1 pod (routed)", pol1,
+                                     plan)
+    pol4 = pol1.with_(shard_pods=SHARD_PODS, shard_sparse=True)
+    res4, exec4, n4, exp4, rt4 = routed_run(
+        db, f"S1 shard {SHARD_PODS} pods", pol4, plan)
+    runs, counts = [], {}
+    for label, pol, res, n, expected, rt, execute_s in (
+            ("1 pod", pol1, res1, n1, exp1, rt1, exec1),
+            (f"{SHARD_PODS} pods", pol4, res4, n4, exp4, rt4, exec4)):
+        check(n == {"distthresh_compact": expected},
+              f"S1 shard {label}: launched {n}")
+        err = same_rows(res, main_res, f"S1 shard {label} vs kernel")
+        st = res.stats
+        runs.append({"run": label, "pods": rt.num_pods,
+                     "routed_execute_s": execute_s,
+                     "dispatch_s": st.dispatch_seconds,
+                     "sync_s": st.sync_seconds,
+                     "batches": st.num_invocations, "groups": st.num_groups,
+                     "syncs": st.num_syncs, "retries": st.total_retries,
+                     "launches": n, "pod_dispatches": expected,
+                     "hits": len(res), "max_abs_err_vs_kernel": err,
+                     "routing": routing_summary(rt)})
+        counts[label] = n["distthresh_compact"]
+    st1 = res1.stats
+    emit({"phase": "shard", "scenario": "S1", "scale": 1.0,
+          "query_wall_s": wall1, "kernel_wall_s": main_wall,
+          "plan_s": st1.plan_seconds, "plan_share": st1.plan_seconds / wall1,
+          "query_execute_s": st1.total_seconds, "runs": runs,
+          "profile_1_pod": profile_shard(db, pol1, plan),
+          "card": card})
+    return res4, pol4, counts
+
+
+def shard_modes(dbs, mode_results, card):
+    """C1 and C3 at scale 0.1 on 4 pods with the kernels: every pruning ×
+    compaction against the single-device kernel rows of the same mode,
+    sparse dispatch on and off byte-identical.  Returns launches per
+    (scenario, mode)."""
+    summary, path_counts = {}, {}
+    for name, db in dbs.items():
+        walls, counts, errs = {}, {}, {}
+        for pruning in ("none", "spatial", "hierarchical"):
+            for compaction in ("fused", "fused_rowloop", "dense"):
+                mode = f"{pruning}/{compaction}"
+                require = allowed_kernels(pruning, compaction)
+                if len(require) > 1:
+                    require = ({k for k in require if "live" in k}
+                               if name == "C3" else set())
+                pol = db.policy.with_(
+                    shard_pods=SHARD_PODS, shard_use_kernel=True,
+                    pruning=pruning, compaction=compaction)
+                res, walls[mode], counts[mode], _ = shard_query(
+                    db, f"{name} shard {mode}", require, pol)
+                errs[mode] = same_rows(res, mode_results[(name, mode)],
+                                       f"{name} shard {mode} vs kernel")
+                dense, _, _, _ = shard_query(
+                    db, f"{name} shard {mode} sparse off", require,
+                    pol.with_(shard_sparse=False))
+                identical(res, dense, f"{name} shard {mode} sparse on/off")
+                path_counts[(name, mode)] = counts[mode]
+        summary[name] = {"wall_s": walls, "launches": counts,
+                         "max_abs_err_vs_kernel": errs}
+    emit({"phase": "shard_modes", "scale": 0.1, "pods": SHARD_PODS,
+          "scenarios": summary, "card": card})
+    return path_counts
+
+
+def shard_serve(db, shard_res, pol, card):
+    """``db.broker(backend="shard")`` on S1 at scale 1.0, 4 pods: the 4
+    tickets of 25 query trajectories, each ticket's slices concatenating
+    to its result and its ``ticket.routing`` filled, the union equal to
+    phase shard's rows; then ticket 2 again under a ``shard.pod``
+    dropout, which re-routes it (stage ``"route"``) through the dense
+    kernel with the same rows.  Returns the fallback's launches."""
+    from repro_torch import faults
+    from repro_torch.serve import RetryPolicy
+    d = db.scenario_d
+    broker = db.broker(backend="shard", policy=pol,
+                       retry=RetryPolicy(degrade_after=1, seed=0))
+    tickets = ticket_queries(db)
+    parts, report = [], []
+    for k, (qk, idx) in enumerate(tickets, start=1):
+        delivered = []
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = broker.submit(qk, d, on_slice=lambda tk, sl: delivered.append(sl))
+        res = t.result()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: c for n, c in launches().items() if c}
+        check(t.state == "done" and not t.health.degradations,
+              f"shard ticket {k}: {t.state}")
+        check(set(counts) == {"distthresh_compact"},
+              f"shard ticket {k} launched {counts}")
+        for f in ("entry_idx", "query_idx", "t_enter", "t_exit"):
+            check(np.array_equal(np.concatenate(
+                [getattr(s.result, f) for s in delivered]),
+                getattr(res, f)), f"shard ticket {k}: slices' {f}")
+        check(all(s.num_syncs <= 2 for s in delivered),
+              f"shard ticket {k}: a slice took more than 2 syncs")
+        rt = t.routing
+        check(rt is not None and rt.num_pods == SHARD_PODS
+              and rt.batches == len(t.plan.batches)
+              and int(rt.pod_hits.sum()) == len(res),
+              f"shard ticket {k}: routing {rt}")
+        parts.append((res, idx))
+        report.append({"ticket": k, "wall_s": wall, "hits": len(res),
+                       "groups": t.num_groups, "launches": counts,
+                       "routing": {"batches": rt.batches,
+                                   "mean_pods_per_batch":
+                                   rt.mean_pods_per_batch,
+                                   "pods_skipped": rt.pods_skipped,
+                                   "pod_hits": rt.pod_hits.tolist()}})
+    err = same_rows(union_rows(parts), shard_res,
+                    "shard tickets vs phase shard")
+
+    qk = tickets[1][0]
+    plan = faults.FaultPlan([faults.FaultSpec("shard.pod", "pod_dropout",
+                                              times=1)])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    faults.arm(plan)
+    try:
+        t = broker.submit(qk, d)
+        res = t.result()
+    finally:
+        faults.disarm()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fallback = {n: c for n, c in launches().items() if c}
+    steps = [(g.stage, g.before, g.after) for g in t.health.degradations]
+    check(steps == [("route", "shard", "single-device")] and res.degraded,
+          f"dropped pod: degradations {steps}")
+    check(len(plan.events) == 1, "the dropout fired other than once")
+    check(fallback.get("distthresh_dense", 0) > 0
+          and set(fallback) <= {"distthresh_dense", "distthresh_compact"},
+          f"re-routed ticket launched {fallback}")
+    route_err = same_rows(res, parts[1][0], "re-routed ticket 2")
+    emit({"phase": "shard_serve", "scenario": "S1", "scale": 1.0,
+          "pods": SHARD_PODS, "tickets": report,
+          "max_abs_err_vs_shard": err,
+          "rerouted_ticket": {"wall_s": wall, "degradations": steps,
+                              "launches": fallback,
+                              "max_abs_err_vs_clean": route_err},
+          "card": card})
+    return fallback
+
+
+def shard_stream(db, base, card):
+    """``query_stream(backend="shard")`` on 4 pods with the kernels, on
+    phase stream's S1 at scale 0.3 database, against its rows."""
+    q, d = db.scenario_queries, db.scenario_d
+    pol = db.policy.with_(shard_pods=SHARD_PODS, shard_use_kernel=True)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, st = db.query_stream(q, d, backend="shard", policy=pol)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: c for n, c in launches().items() if c}
+    check(set(counts) == {"distthresh_compact"},
+          f"shard stream launched {counts}")
+    rt = st.routing
+    check(rt is not None and rt.num_pods == SHARD_PODS
+          and rt.batches >= res.plan.num_batches,
+          f"shard stream routing {rt}")
+    err = same_rows(res, base, "shard query_stream vs kernel query")
+    emit({"phase": "shard_stream", "scenario": "S1", "scale": 0.3,
+          "pods": SHARD_PODS, "wall_s": wall, "hits": len(res),
+          "groups": st.groups, "reissued": st.reissued,
+          "launches": counts,
+          "routing": {"batches": rt.batches, "pods_skipped":
+                      rt.pods_skipped, "hit_balance": rt.hit_balance},
+          "max_abs_err_vs_kernel": err, "card": card})
+
+
+#: S1 scale of the R-tree phase: the R-tree's Python search walk makes
+#: scale 1.0 (10^6 segments, 40,000 query segments) take hours; 0.1 is
+#: the largest of 1.0 / 0.3 / 0.1 whose two runs fit about two minutes.
+RTREE_SCALE = 0.1
+
+
+def host_cpu() -> str:
+    """The host CPU where the R-tree backend runs: ``/proc/cpuinfo``'s
+    model name with its vendor, family and model numbers (a virtualized
+    host may report the name as unknown), else ``lscpu``'s, else
+    ``platform``'s."""
+    import platform
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    if info.get("model name"):
+        return (f"{info['model name']} ({info.get('vendor_id', '?')}, "
+                f"family {info.get('cpu family', '?')}, model "
+                f"{info.get('model', '?')}, stepping "
+                f"{info.get('stepping', '?')})")
+    if shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True,
+                             text=True).stdout
+        for line in out.splitlines():
+            if line.split(":")[0].strip() == "Model name":
+                return line.split(":", 1)[1].strip()
+    return platform.processor() or platform.machine() or "unknown"
+
+
+def rtree_path(dev, card):
+    """S1 at ``RTREE_SCALE`` through ``backend="rtree"`` (the paper's §7.3
+    CPU baseline, on the host) with 1 thread and with the host's cores
+    (at most 16), each against ``backend="kernel"`` on the card: the
+    paper's GPU-versus-R-tree speedup on this machine."""
+    from repro_torch.api import TrajectoryDB
+    db = TrajectoryDB.from_scenario("S1", scale=RTREE_SCALE, device=dev)
+    timed_query(db, "kernel")                       # warm, untimed
+    kres, kwall, _ = kernel_path(db, "S1 rtree-scale kernel",
+                                 {"distthresh_compact"})
+    threads = min(os.cpu_count() or 1, 16)
+    runs = []
+    for n in sorted({1, threads}):
+        reset_launches()
+        res, wall = timed_query(db, "rtree",
+                                policy=db.policy.with_(rtree_threads=n))
+        check(not any(launches().values()), "the R-tree launched a kernel")
+        err = same_rows(res, kres, f"rtree ({n} threads) vs kernel")
+        runs.append({"threads": n, "wall_s": wall, "hits": len(res),
+                     "speedup_kernel_vs_rtree": wall / kwall,
+                     "max_abs_err_vs_kernel": err})
+    emit({"phase": "rtree", "scenario": "S1", "scale": RTREE_SCALE,
+          "entry_segments": len(db), "query_segments":
+          len(db.scenario_queries), "kernel_wall_s": kwall,
+          "kernel_plan_s": kres.stats.plan_seconds, "runs": runs,
+          "host_cpu": host_cpu(), "host_cores": os.cpu_count(),
+          "card": card})
 
 
 # ----------------------------------------------------------------------
@@ -1506,14 +1922,21 @@ def main() -> int:
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "rtol": K_RTOL, "atol": K_ATOL, **checks, "flashattn": flash})
 
-    s1, main_res, main_counts, dense_counts = main_path(dev, card)
-    profile_main(s1, card)
-    profile_main(s1, card, "dense")
-    dbs, path_counts = mode_matrix(dev, card)
+    (s1, main_res, main_wall, main_counts, dense_res,
+     dense_counts) = main_path(dev, card)
+    profile_main(s1, main_res, card)
+    profile_main(s1, dense_res, card, "dense")
+    shard_res, shard_pol, shard_counts = shard_path(s1, main_res, main_wall,
+                                                    card)
+    dbs, path_counts, mode_results = mode_matrix(dev, card)
+    shard_mode_counts = shard_modes(dbs, mode_results, card)
+    rtree_path(dev, card)
     ladder_counts, tickets = serve_path(s1, main_res, card)
     profile_ticket2(s1, card)
+    route_counts = shard_serve(s1, shard_res, shard_pol, card)
     fit_path(s1, tickets, card)
-    stream_path(dev, card)
+    stream_db, stream_base = stream_path(dev, card)
+    shard_stream(stream_db, stream_base, card)
     flash_launches, flash_shape = llm_path(dev, card)
     c3_live = path_counts[("C3", "hierarchical/fused")]
     c3_live_rowloop = path_counts[("C3", "hierarchical/fused_rowloop")]
@@ -1543,6 +1966,33 @@ def main() -> int:
     f32["launches_counted_on"] = ("none: the llm phase runs bf16; float32 "
                                   "inputs run this kernel (phase kernels)")
     emit({"phase": "timing_flash_f32", **f32, "card": card})
+    # The shard paths' launches of each kernel, each path's counters set
+    # to 0 just before it and read just after.
+    shard_launches = {
+        "distthresh_compact": {
+            f"S1 scale 1.0 shard, {k}": n for k, n in shard_counts.items()},
+        "distthresh_dense": {
+            "S1 scale 1.0 shard serve, ticket 2 re-routed after a pod "
+            "dropout": route_counts.get("distthresh_dense", 0),
+            f"C1 scale 0.1 shard {SHARD_PODS} pods, dense":
+            shard_mode_counts[("C1", "none/dense")].get(
+                "distthresh_dense", 0)},
+        "distthresh_compact_live": {
+            f"C3 scale 0.1 shard {SHARD_PODS} pods, hierarchical/fused":
+            shard_mode_counts[("C3", "hierarchical/fused")].get(
+                "distthresh_compact_live", 0)},
+        "distthresh_compact_rowloop": {
+            f"C1 scale 0.1 shard {SHARD_PODS} pods, spatial/fused_rowloop":
+            shard_mode_counts[("C1", "spatial/fused_rowloop")].get(
+                "distthresh_compact_rowloop", 0)},
+        "distthresh_compact_live_rowloop": {
+            f"C3 scale 0.1 shard {SHARD_PODS} pods, "
+            "hierarchical/fused_rowloop":
+            shard_mode_counts[("C3", "hierarchical/fused_rowloop")].get(
+                "distthresh_compact_live_rowloop", 0)},
+        "flashattn": {}}
+    for name, paths in shard_launches.items():
+        by_name[name]["launches_shard"] = paths
     table = [by_name[name] for name in REPLACES]
     torch.cuda.synchronize()
 

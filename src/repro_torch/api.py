@@ -14,7 +14,16 @@ Backends:
   executor (the counterpart of the reference's ``"pallas"``);
 * ``"torch"`` — the plain PyTorch oracle through the same engine and
   executor (the counterpart of ``"jnp"``);
-* ``"brute"`` — the all-pairs oracle.
+* ``"rtree"`` — the paper's §7.3 search-and-refine R-tree baseline
+  (``repro_torch.core.rtree``), which runs on the host CPU whatever the
+  database's device: it is the thing the GPU is compared against;
+* ``"brute"`` — the all-pairs oracle;
+* ``"shard"`` — the temporal-pod backend (``repro_torch.core.
+  distributed``, the paper's §1 partitioning across nodes): each batch runs
+  once per pod that owns candidates of it, the pods laid over the visible
+  devices, with the same ≤ 2 host syncs per dispatch group.
+
+All five return the same canonical rows.
 
 ``db.query_stream(...)`` runs a query set through the deadline/re-issue
 scheduler (``repro_torch.core.scheduler``), ``db.broker(...)`` returns the
@@ -50,15 +59,16 @@ from repro_torch.core.engine import (DistanceThresholdEngine, ExecStats,
 from repro_torch.core.errors import CapacityError, PodFailedError
 from repro_torch.core.index import DEFAULT_NUM_BINS, TemporalBinIndex
 from repro_torch.core.planner import PRUNINGS, QueryPlan, QueryPlanner
+from repro_torch.core.rtree import RTreeEngine
 from repro_torch.core.scheduler import DeadlineScheduler, SchedulerStats
 from repro_torch.core.segments import SegmentArray
 from repro_torch.kernels.distthresh import DEFAULT_CAND_BLK, DEFAULT_QRY_BLK
 
 #: Names accepted by ``TrajectoryDB.query(backend=...)``.
-BACKENDS = ("kernel", "torch", "brute")
+BACKENDS = ("kernel", "torch", "rtree", "brute", "shard")
 
 #: Backends that execute through a ``repro_torch.core.executor`` driver.
-ENGINE_BACKENDS = ("kernel", "torch")
+ENGINE_BACKENDS = ("kernel", "torch", "shard")
 
 #: Default batch size anchor used when an algorithm's parameters are not
 #: given explicitly (the paper's practical PERIODIC recommendation, §7.4).
@@ -107,6 +117,22 @@ class ExecutionPolicy:
     #: bound on per-batch overflow re-dispatches; a batch still overflowing
     #: after this many enlargements raises ``CapacityError``.
     max_capacity_retries: int = 3
+
+    # -- temporal-pod backend (backend="shard") -------------------------
+    shard_pods: int | None = None         # None → one pod per visible device
+    shard_capacity: int = 4096            # result slots per pod per batch
+    #: the hand-written kernels in every pod's step (else the torch oracle
+    #: with dense compaction, the reference's ``shard_use_pallas=False``).
+    shard_use_kernel: bool = False
+    shard_balance: str = "time"           # pod partition: "time" | "num_ints"
+    #: pods with zero candidates for a batch are not launched.  Exact:
+    #: results are identical with it on or off.
+    shard_sparse: bool = True
+
+    # -- R-tree baseline ------------------------------------------------
+    rtree_r: int = 12                     # segments per leaf MBB (Fig. 5)
+    rtree_fanout: int = 16
+    rtree_threads: int = 1                # >1 → query_parallel
 
     # -- brute oracle ---------------------------------------------------
     brute_chunk: int = 2048
@@ -245,6 +271,24 @@ class EngineBackend:
         return self.engine.execute(queries, d, plan)
 
 
+class RTreeBackend:
+    """Adapter over the §7.3 search-and-refine CPU baseline (host CPU
+    whatever the database's device)."""
+
+    name = "rtree"
+    needs_plan = False
+
+    def __init__(self, engine: RTreeEngine, *, threads: int = 1):
+        self.engine = engine
+        self.threads = threads
+
+    def run(self, queries: SegmentArray, d: float,
+            plan: QueryPlan | None) -> tuple[ResultSet, ExecStats | None]:
+        if self.threads > 1:
+            return self.engine.query_parallel(queries, d, self.threads), None
+        return self.engine.query(queries, d), None
+
+
 class BruteBackend:
     """Adapter over the all-pairs oracle (tests / small inputs)."""
 
@@ -261,6 +305,25 @@ class BruteBackend:
             plan: QueryPlan | None) -> tuple[ResultSet, ExecStats | None]:
         return brute_force(self.db, queries, d, chunk=self.chunk,
                            device=self.device), None
+
+
+class ShardBackend:
+    """Adapter over the temporal-pod engine
+    (``repro_torch.core.distributed.ShardedEngine``).  Shares the facade's
+    sorted segments; runs through the same pipelined executor as the
+    single-device engine."""
+
+    name = "shard"
+    needs_plan = True
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def run(self, queries: SegmentArray, d: float,
+            plan: QueryPlan | None) -> tuple[ResultSet, ExecStats | None]:
+        if plan is None:
+            raise ValueError("backend 'shard' requires a plan")
+        return self.engine.execute(queries, d, plan)
 
 
 # ----------------------------------------------------------------------
@@ -385,9 +448,25 @@ class TrajectoryDB:
     @staticmethod
     def _backend_key(name: str, pol: ExecutionPolicy) -> tuple:
         """The policy fields a backend's construction depends on."""
-        if name in ENGINE_BACKENDS:
+        if name in ("kernel", "torch"):
             return (pol.cand_blk, pol.qry_blk, pol.capacity, pol.compaction,
                     pol.pipeline, pol.pruning, pol.max_capacity_retries)
+        if name == "shard":
+            # compaction (and kernel pruning) matter only on the kernel
+            # path: key on the effective values, as ShardedEngine
+            # normalizes them, so policies differing in an irrelevant knob
+            # share one engine.  pol.pruning itself shapes construction
+            # too: hierarchical builds the pod-local K-box plan index.
+            compaction = pol.compaction if pol.shard_use_kernel else "dense"
+            pruning = (pol.pruning if pol.shard_use_kernel
+                       and compaction in ("fused", "fused_rowloop")
+                       else "none")
+            return (pol.shard_pods, pol.shard_capacity, pol.shard_use_kernel,
+                    pol.shard_balance, pol.cand_blk, pol.qry_blk, compaction,
+                    pol.pipeline, pruning, pol.pruning, pol.shard_sparse,
+                    pol.max_capacity_retries)
+        if name == "rtree":
+            return (pol.rtree_r, pol.rtree_fanout, pol.rtree_threads)
         return (pol.brute_chunk,)
 
     def backend(self, name: str,
@@ -399,7 +478,7 @@ class TrajectoryDB:
         pol = policy or self.policy
         key = (name,) + self._backend_key(name, pol)
         if key not in self._backends:
-            if name in ENGINE_BACKENDS:
+            if name in ("kernel", "torch"):
                 eng = copy.copy(self._base_engine)   # shares db/index/packed
                 eng.use_kernel = (name == "kernel")
                 eng.cand_blk = pol.cand_blk
@@ -410,6 +489,25 @@ class TrajectoryDB:
                 eng.pruning = pol.pruning
                 eng.max_capacity_retries = pol.max_capacity_retries
                 self._backends[key] = EngineBackend(name, eng)
+            elif name == "shard":
+                from repro_torch.core.distributed import ShardedEngine
+                compaction = (pol.compaction if pol.shard_use_kernel
+                              else "dense")
+                self._backends[key] = ShardBackend(ShardedEngine(
+                    self.segments, pods=pol.shard_pods,
+                    capacity_per_shard=pol.shard_capacity,
+                    use_kernel=pol.shard_use_kernel, cand_blk=pol.cand_blk,
+                    qry_blk=pol.qry_blk, compaction=compaction,
+                    pipeline=pol.pipeline, balance=pol.shard_balance,
+                    pruning=pol.pruning, index=self.index,
+                    sparse=pol.shard_sparse,
+                    max_capacity_retries=pol.max_capacity_retries,
+                    device=self.device))
+            elif name == "rtree":
+                self._backends[key] = RTreeBackend(
+                    RTreeEngine(self.segments, r=pol.rtree_r,
+                                fanout=pol.rtree_fanout),
+                    threads=pol.rtree_threads)
             else:
                 self._backends[key] = BruteBackend(
                     self.segments, chunk=pol.brute_chunk, device=self.device)
@@ -426,36 +524,51 @@ class TrajectoryDB:
 
     # -- planning --------------------------------------------------------
     def planner(self, pol: ExecutionPolicy | None = None, *,
-                num_queries: int = 0) -> QueryPlanner:
+                num_queries: int = 0, backend: str = "kernel"
+                ) -> QueryPlanner:
         """The :class:`~repro_torch.core.planner.QueryPlanner` a policy
-        resolves to.  A fitted §8 model attached via
-        :meth:`fit_response_model` feeds its ``predict_hits``
-        (dispatch-group sizing)."""
+        resolves to (capacities per pod for ``backend="shard"``).  A
+        fitted §8 model attached via :meth:`fit_response_model` feeds its
+        ``predict_hits`` (dispatch-group sizing)."""
         pol = pol or self.policy
         if pol.pruning not in PRUNINGS:
             raise ValueError(f"unknown pruning {pol.pruning!r}; "
                              f"choose from {PRUNINGS}")
+        capacity = pol.shard_capacity if backend == "shard" else pol.capacity
         predict_hits = (self.response_model.predict_batch_hits
                         if self.response_model is not None else None)
+        pruning = pol.pruning
+        index = self.index
+        if backend == "shard" and pruning == "hierarchical":
+            # Shard plans under hierarchical pruning address pod-permuted
+            # positions: plan on the engine's pod-partitioned K-box index,
+            # whose box sub-ranges line up with the pod ownership slices
+            # and the engine's permuted packed copy.
+            eng = self.backend("shard", pol).engine
+            if eng.plan_index is not None:
+                index = eng.plan_index
+            else:
+                pruning = eng.plan_pruning
         return QueryPlanner(
-            self.index, algorithm=pol.batching,
+            index, algorithm=pol.batching,
             params=pol.resolved_batch_params(num_queries),
-            default_capacity=pol.capacity, group_size=pol.group_size,
-            pruning=pol.pruning, predict_hits=predict_hits,
+            default_capacity=capacity, group_size=pol.group_size,
+            pruning=pruning, predict_hits=predict_hits,
             max_subranges=pol.max_subranges)
 
     def plan(self, queries: SegmentArray,
              policy: ExecutionPolicy | None = None, *,
-             d: float | None = None) -> QueryPlan:
+             backend: str = "kernel", d: float | None = None) -> QueryPlan:
         """A query plan for sorted-or-not queries.  Pass ``d`` to get the
         pruned plan the query path would execute."""
         qs, _ = self._sorted(queries)
-        return self._make_plan(qs, policy or self.policy, d=d)
+        return self._make_plan(qs, policy or self.policy, backend, d=d)
 
     def _make_plan(self, sorted_queries: SegmentArray, pol: ExecutionPolicy,
+                   backend: str = "kernel",
                    d: float | None = None) -> QueryPlan:
-        return self.planner(pol, num_queries=len(sorted_queries)).plan(
-            sorted_queries, d=d)
+        return self.planner(pol, num_queries=len(sorted_queries),
+                            backend=backend).plan(sorted_queries, d=d)
 
     @staticmethod
     def _sorted(queries: SegmentArray
@@ -511,7 +624,8 @@ class TrajectoryDB:
                                    compaction, pipeline, pruning)
         be = self.backend(backend, pol)
         qs, order = self._sorted(queries)
-        plan = self._make_plan(qs, pol, d=d) if be.needs_plan else None
+        plan = (self._make_plan(qs, pol, backend, d=d) if be.needs_plan
+                else None)
         rs, stats = be.run(qs, d, plan)
         return QueryResult.from_result_set(
             rs, order=order, d=d, backend=backend, stats=stats, plan=plan)
@@ -536,6 +650,10 @@ class TrajectoryDB:
         overrides) and each call runs as one pipelined two-phase dispatch
         — ≤ 2 host syncs per group.  Re-issue, deduplication and deadlines
         (§8-model-derived, summed over the group) all operate on groups.
+        ``backend="shard"`` routes every group through a per-pod
+        ``repro_torch.core.distributed.PodRouter``;
+        ``SchedulerStats.routing`` then carries its fan-out and hit-balance
+        accounting.
         """
         if backend not in ENGINE_BACKENDS:
             raise ValueError(
@@ -550,8 +668,11 @@ class TrajectoryDB:
         pol = self._resolve_policy(batching, policy, batch_params,
                                    compaction, pipeline, pruning)
         engine = self.backend(backend, pol).engine
+        if backend == "shard":
+            from repro_torch.core.distributed import PodRouter
+            engine = PodRouter(engine)
         qs, order = self._sorted(queries)
-        plan = self._make_plan(qs, pol, d=d)
+        plan = self._make_plan(qs, pol, backend, d=d)
         if predict_seconds is None and self.response_model is not None:
             predict_seconds = self.response_model.predict_batch_seconds
         sched = DeadlineScheduler(
@@ -650,6 +771,6 @@ __all__ = [
     "BruteBackend", "CapacityError", "DeadlineExceededError", "Degradation",
     "EngineBackend", "ExecutionPolicy", "FaultPlan", "FaultSpec",
     "GroupSlice", "PodFailedError", "QueryBackend", "QueryBroker",
-    "QueryResult", "QueryTicket", "RetryPolicy", "TicketHealth",
-    "TrajectoryDB",
+    "QueryResult", "QueryTicket", "RetryPolicy", "RTreeBackend",
+    "ShardBackend", "TicketHealth", "TrajectoryDB",
 ]

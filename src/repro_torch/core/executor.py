@@ -167,6 +167,8 @@ class Dispatch:
     batch: QueryBatch
     capacity: int
     out: object
+    #: the dispatcher's prepared inputs, for ``redispatch``.
+    ctx: object = None
 
 
 @runtime_checkable
@@ -177,6 +179,11 @@ class BatchDispatcher(Protocol):
     ``dispatch`` must not read from the device; the other methods are
     only called after the executor has waited on a fence recorded after
     the dispatch.
+
+    Two hooks are optional: ``redispatch(dp, capacity)``, an overflow
+    re-dispatch that reuses ``dp.ctx`` (the executors fall back to
+    ``dispatch(dp.batch, capacity)``), and ``record_empty(batch)``, told
+    of each zero-candidate batch skipped on the host.
     """
 
     device: torch.device
@@ -206,6 +213,24 @@ class Fence:
     def wait(self) -> None:
         if self.event is not None:
             self.event.synchronize()
+
+
+def _redispatch(dispatcher: BatchDispatcher, dp: Dispatch,
+                capacity: int) -> Dispatch:
+    """Overflow re-dispatch, reusing prepared inputs when the dispatcher
+    supports it."""
+    redo = getattr(dispatcher, "redispatch", None)
+    if redo is not None:
+        return redo(dp, capacity)
+    return dispatcher.dispatch(dp.batch, capacity)
+
+
+def _record_empty(dispatcher: BatchDispatcher, batch: QueryBatch) -> None:
+    """Tell the dispatcher a zero-candidate batch was skipped host-side
+    (routing ledgers keep an explicit row per planned batch)."""
+    fn = getattr(dispatcher, "record_empty", None)
+    if fn is not None:
+        fn(batch)
 
 
 def _empty_stats(batch: QueryBatch) -> BatchStats:
@@ -240,6 +265,7 @@ class SyncExecutor:
             for i in g:
                 batch, capacity = plan.batches[i], plan.capacities[i]
                 if batch.num_candidates == 0:
+                    _record_empty(disp, batch)
                     stats_by_idx[i] = _empty_stats(batch)
                     continue
                 t0 = time.perf_counter()
@@ -255,7 +281,7 @@ class SyncExecutor:
                         raise CapacityError(count, dp.capacity,
                                             batch_index=i, retries=retries)
                     t0r = time.perf_counter()
-                    dp = disp.dispatch(batch, cap2)
+                    dp = _redispatch(disp, dp, cap2)
                     Fence(disp.device).wait()
                     retry_s += time.perf_counter() - t0r
                     num_syncs += 1
@@ -313,6 +339,7 @@ class PipelinedExecutor:
             for i in g:
                 batch = plan.batches[i]
                 if batch.num_candidates == 0:
+                    _record_empty(disp, batch)
                     continue
                 slots[i] = disp.dispatch(batch, plan.capacities[i])
             fences[gi] = Fence(disp.device)
@@ -343,7 +370,7 @@ class PipelinedExecutor:
                             counts[i], slots[i].capacity, batch_index=i,
                             retries=rounds.get(i, 0))
                     rounds[i] = rounds.get(i, 0) + 1
-                    slots[i] = disp.dispatch(slots[i].batch, cap2)
+                    slots[i] = _redispatch(disp, slots[i], cap2)
                     redo.append(i)
                 if not redo:
                     break

@@ -65,8 +65,8 @@ class SchedulerStats:
     failures: int = 0              #: worker executions that raised
     wall_seconds: float = 0.0
     group_sizes: list = dataclasses.field(default_factory=list)
-    #: per-pod routing accounting (the reference fills it for its sharded
-    #: backend, which the port does not have yet); ``None`` here.
+    #: per-pod routing accounting when the engine is a ``PodRouter``
+    #: (``repro_torch.core.distributed.RoutingStats``); ``None`` otherwise.
     routing: object = None
 
     @property
@@ -82,7 +82,10 @@ class DeadlineScheduler:
     re-issue; each group is one pipelined engine dispatch.
 
     ``engine`` is anything with the engines' ``execute(queries, d, plan)``
-    contract — here the single-device ``DistanceThresholdEngine``."""
+    contract — the single-device ``DistanceThresholdEngine``, the pod
+    ``ShardedEngine``, or a ``repro_torch.core.distributed.PodRouter``
+    (the per-pod routing layer ``query_stream(backend="shard")`` wraps
+    around the sharded engine)."""
 
     def __init__(self, engine: DistanceThresholdEngine, *,
                  workers: int = 2, slack: float = 4.0,

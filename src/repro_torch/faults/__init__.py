@@ -14,6 +14,10 @@ Sites (the ``site`` string each hook passes):
 ``engine.dispatch``       single-device dispatcher, before kernel launch
 ``engine.count``          single-device count readback (corruptible)
 ``engine.marshal``        single-device result marshalling
+``shard.dispatch``        pod-shard dispatcher, before the pod launches
+``shard.pod``             once per *live* pod per dispatch (dropout target)
+``shard.count``           pod-shard total-count readback (corruptible)
+``shard.marshal``         pod-shard result marshalling
 ``scheduler.worker``      :class:`DeadlineScheduler` worker, per group attempt
 ``broker.plan``           broker planning step in ``submit()``
 ``cache.lookup``          broker-side :class:`SliceCache` lookup
@@ -23,8 +27,8 @@ Sites (the ``site`` string each hook passes):
 Fault kinds: ``error`` (raised :class:`InjectedKernelError`),
 ``resource_exhausted`` (:class:`InjectedResourceExhausted`, message
 prefixed ``RESOURCE_EXHAUSTED`` like an OOM-ing runtime), ``delay``
-(straggler sleep), ``pod_dropout`` (:class:`PodFailedError`; the
-reference fires it at its pod sites, which the port does not have yet),
+(straggler sleep), ``pod_dropout`` (:class:`PodFailedError` — only
+meaningful at ``shard.pod``),
 ``corrupt_count`` (inflates/deflates a
 host-read overflow count via :func:`corrupt`).
 

@@ -233,7 +233,8 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
                 qry_blk: int = DEFAULT_QRY_BLK, compaction: str = "fused",
                 pruning: str = "none",
                 entries_dev: torch.Tensor | None = None,
-                queries_t_dev: torch.Tensor | None = None) -> dict:
+                queries_t_dev: torch.Tensor | None = None,
+                inject_faults: bool = True) -> dict:
     """Interaction evaluation + compaction into flat buffers.
 
     Args:
@@ -245,6 +246,9 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
         CPU) or the torch oracle, which always takes the dense path.
       entries_dev / queries_t_dev: the same rows already on ``device``, as
         (C, 8) and (8, Q); uploaded from the host arrays when omitted.
+      inject_faults: consult the ``ops.query_block`` fault site.  The
+        reference fires it only for host-side dispatches, never inside its
+        pod step, so the port's pod step passes ``False``.
 
     Returns a dict of tensors on ``device``:
       ``entry_idx``  (capacity,) int32 — row index into ``entries`` (-1 pad)
@@ -272,7 +276,7 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
     if pruning not in PRUNINGS:
         raise ValueError(f"unknown pruning {pruning!r}; "
                          f"choose from {PRUNINGS}")
-    if faults.armed():
+    if faults.armed() and inject_faults:
         faults.inject("ops.query_block", compaction=compaction,
                       pruning=pruning, use_kernel=use_kernel,
                       rows=int(entries.shape[0]))

@@ -25,6 +25,11 @@ wins or loses at scale.
 * Slices concatenate to **exactly** the canonical ``db.query(...)`` result:
   each slice is canonicalized within its group and mapped to the caller's
   query order; ``result()`` finalizes the global canonical order.
+* The broker routes over *any* backend, including ``backend="shard"``: a
+  ticket's groups fan out to the per-pod candidate slices through
+  :class:`repro_torch.core.distributed.PodRouter`, per-pod hits merge
+  globally indexed, and ``ticket.routing`` reports the pod fan-out and hit
+  balance.
 * A group that raises marks its ticket **errored** (state ``"error"``,
   ``result()`` re-raises, ``exception()`` exposes it) without poisoning the
   queue — callers can retry by resubmitting.
@@ -51,7 +56,10 @@ then, on a CPU database only, backend ``kernel → torch`` (on a CUDA
 database a failure on ``kernel/dense`` fails the ticket: the port never
 hands a kernel's work to its plain version on the card); a failing
 planner steps pruning
-``hierarchical → spatial → none`` at submit.  Every rung gives the same
+``hierarchical → spatial → none`` at submit; a dropped pod re-routes the
+ticket's remaining groups through a single-device fallback dispatcher
+(the ``"route"`` stage: the dense CUDA kernel on a CUDA database, the
+torch oracle on a CPU one).  Every rung gives the same
 canonical rows — degraded, never wrong.  ``ticket.health``
 (:class:`TicketHealth`) records attempts, backoff, straggler re-issues and
 every :class:`Degradation` step; permanent failures stay structured
@@ -59,10 +67,6 @@ every :class:`Degradation` step; permanent failures stay structured
 :class:`DeadlineExceededError`) and :meth:`QueryTicket.partial_result`
 hands back the completed canonical prefix flagged ``degraded=True``.
 Without a retry policy the first failure errors the ticket.
-
-The reference also routes ``backend="shard"`` per pod and re-routes a
-dropped pod; the port has no sharded backend yet, so a
-:class:`~repro_torch.core.errors.PodFailedError` fails its ticket.
 """
 from __future__ import annotations
 
@@ -164,8 +168,9 @@ class Degradation:
     """One graceful-degradation step taken while serving a ticket.
 
     ``stage`` is ``"compaction"`` (kernel result-compaction rung),
-    ``"backend"`` (kernel → torch, on a CPU database only) or
-    ``"pruning"`` (planner ladder at submit).  ``before``/``after`` name
+    ``"backend"`` (kernel → torch, on a CPU database only),
+    ``"pruning"`` (planner ladder at submit) or ``"route"`` (dropped pod
+    re-routed to the single-device fallback).  ``before``/``after`` name
     the rungs; ``group`` is the dispatch group whose failure triggered
     the step (``None`` for submit-time planning steps)."""
 
@@ -232,6 +237,7 @@ class QueryTicket:
         self.interactions = interactions
         self.plan = plan
         self.on_slice = on_slice
+        self.routing = None           # RoutingStats for backend="shard"
         self._order = order
         self._groups = groups
         self._group_ints = group_ints
@@ -252,6 +258,7 @@ class QueryTicket:
         self._exec_qs: SegmentArray | None = None
         self._ladder: list = []        # remaining degradation rungs
         self._rung: tuple = (backend, "")
+        self._rerouted = False         # pod-dropout fallback taken
 
     # -- state ----------------------------------------------------------
     @property
@@ -506,7 +513,7 @@ class QueryBroker:
                     if faults.armed():
                         faults.inject("broker.plan", uid=uid,
                                       backend=backend, pruning=pol.pruning)
-                    plan = self.db._make_plan(qs, pol, d=d)
+                    plan = self.db._make_plan(qs, pol, backend, d=d)
                     break
                 except Exception as e:
                     nxt = {"hierarchical": "spatial",
@@ -580,6 +587,8 @@ class QueryBroker:
             ticket._ladder = (rungs[rungs.index(ticket._rung) + 1:]
                               if ticket._rung in rungs
                               else [r for r in rungs if r[0] != "kernel"])
+        if backend == "shard":
+            ticket.routing = run_group.dispatcher.router.stats
         ticket.health.degradations.extend(plan_degradations)
         self._inflight_interactions += interactions
         self._inflight_predicted += predicted or 0.0
@@ -591,13 +600,18 @@ class QueryBroker:
                      plan: QueryPlan | None):
         """The per-ticket group runner.  Engine backends share one
         dispatcher (and its one upload of the ticket's queries) across the
-        ticket's groups."""
+        ticket's groups; ``backend="shard"`` fans out through a fresh
+        ``PodRouter``."""
         if plan is None:
             def run_whole(group, _be=be, _qs=qs, _d=d):
                 rs, stats = _be.run(_qs, _d, None)
                 return rs, stats
             return run_whole
-        dispatcher = be.engine.dispatcher(qs.packed(), d)
+        if backend == "shard":
+            from repro_torch.core.distributed import PodRouter
+            dispatcher = PodRouter(be.engine).dispatcher(qs.packed(), d)
+        else:
+            dispatcher = be.engine.dispatcher(qs.packed(), d)
         return _GroupRunner(dispatcher, plan,
                             max_capacity_retries=be.engine.max_capacity_retries)
 
@@ -707,7 +721,9 @@ class QueryBroker:
         """Route one group failure.
 
         Permanent/structured errors (and any failure without a retry
-        policy) fail the ticket; everything else re-issues with backoff,
+        policy) fail the ticket; a dropped pod re-routes the remaining
+        groups through the single-device fallback and retries
+        immediately; everything else re-issues with backoff,
         stepping the degradation ladder after ``degrade_after`` consecutive
         non-transient failures of the same group.  The ticket's
         interaction budget stays held across retries — the work is still
@@ -719,13 +735,23 @@ class QueryBroker:
         retry = self.retry
         if retry is None or isinstance(
                 error, (CapacityError, AdmissionError,
-                        DeadlineExceededError, PodFailedError)):
+                        DeadlineExceededError)):
             # Structured/permanent: re-running cannot change the outcome
             # (CapacityError already exhausted the executor's bounded
-            # capacity-retry loop, exact count in hand; a dropped pod has
-            # no re-route without a sharded backend).
+            # capacity-retry loop, exact count in hand).
             self._fail(ticket, error)
             return
+        if isinstance(error, PodFailedError):
+            if ticket._rerouted or ticket.backend != "shard":
+                self._fail(ticket, error)
+                return
+            try:
+                self._reroute_pod(ticket, error)
+            except Exception:
+                self._fail(ticket, error)
+                return
+            health.retries += 1
+            return                 # re-issue immediately on the new route
         attempts = health.attempts.get(gi, 0)
         if attempts >= retry.max_attempts:
             self._fail(ticket, error)
@@ -767,6 +793,23 @@ class QueryBroker:
             before=f"{prev[0]}/{prev[1]}", after=f"{name}/{compaction}",
             group=gi, reason=repr(error)))
         return True
+
+    def _reroute_pod(self, ticket: QueryTicket,
+                     error: BaseException) -> None:
+        """A pod dropped out mid-ticket: re-route the remaining groups
+        through the single-device fallback dispatcher over the sharded
+        engine's packed copy — no pod parallelism, the same rows."""
+        from repro_torch.core.distributed import PodFallbackDispatcher
+        se = self.db.backend("shard", ticket._pol).engine
+        dispatcher = PodFallbackDispatcher(se, ticket._exec_qs.packed(),
+                                           ticket.d)
+        ticket._run_group = _GroupRunner(
+            dispatcher, ticket.plan,
+            max_capacity_retries=se.max_capacity_retries)
+        ticket._rerouted = True
+        ticket.health.degradations.append(Degradation(
+            stage="route", before="shard", after="single-device",
+            group=ticket._next_group, reason=repr(error)))
 
     def _deliver(self, ticket: QueryTicket, group, rs_part,
                  stats: ExecStats | None, seconds: float) -> None:

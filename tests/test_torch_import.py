@@ -42,7 +42,8 @@ def test_port_has_modules():
             "repro_torch.models.attention", "repro_torch.models.transformer",
             "repro_torch.models.convert", "repro_torch.kernels.flashattn",
             "repro_torch.kernels._launch", "repro_torch.serve.engine",
-            "repro_torch.serve.batcher"} <= names
+            "repro_torch.serve.batcher", "repro_torch.core.rtree",
+            "repro_torch.core.distributed"} <= names
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -87,7 +88,7 @@ def test_source_imports_neither_jax_nor_repro(path):
 def _entry_points():
     from repro_torch import resolve_device
     from repro_torch.api import TrajectoryDB
-    from repro_torch.core import perfmodel
+    from repro_torch.core import distributed, perfmodel
     from repro_torch.core.engine import DistanceThresholdEngine, brute_force
     from repro_torch.core.segments import SegmentArray
     from repro_torch.configs import ARCHS
@@ -138,6 +139,9 @@ def _entry_points():
         "init_cache": lambda: transformer.init_cache(cfg, 1, 8),
         "ServeEngine": lambda: ServeEngine(
             cfg, transformer.LM(cfg, device="cpu")),
+        "ShardedEngine": lambda: distributed.ShardedEngine(seg),
+        "pod_devices": lambda: distributed.pod_devices(2),
+        "DistributedEngine": lambda: distributed.DistributedEngine(seg),
     }
 
 
@@ -157,3 +161,49 @@ def test_wrapper_refuses_tensor_on_other_device():
     e = torch.zeros((4, 8), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="but device=cpu"):
         dt.distthresh_dense(e, e.T, 1.0, device="cpu")
+
+
+# ----------------------------------------------------------------------
+# Facade parity with the reference's package surface.
+# ----------------------------------------------------------------------
+def test_lazy_names_equal_reference():
+    """``repro_torch`` exports the reference's 17 lazy facade names (plus
+    ``resolve_device``), each the ``repro_torch.api`` object."""
+    import repro
+    import repro_torch
+    from repro_torch import api
+    assert repro_torch._API_NAMES == repro._API_NAMES
+    assert len(repro_torch._API_NAMES) == 17
+    for name in repro_torch._API_NAMES:
+        assert getattr(repro_torch, name) is getattr(api, name), name
+    assert set(dir(repro_torch)) >= set(repro._API_NAMES) | {
+        "resolve_device"}
+    assert repro_torch.BACKENDS == ("kernel", "torch", "rtree", "brute",
+                                    "shard")
+    with pytest.raises(AttributeError):
+        repro_torch.NoSuchName
+
+
+def test_core_deprecated_reexports_warn():
+    import repro_torch.core as core
+    from repro_torch.core import engine
+    for name in ("DistanceThresholdEngine", "ResultSet", "ExecStats",
+                 "brute_force"):
+        with pytest.warns(DeprecationWarning, match=name):
+            assert getattr(core, name) is getattr(engine, name)
+        assert name in dir(core)
+    with pytest.raises(AttributeError):
+        core.NoSuchName
+
+
+def test_import_package_leaves_jax_out():
+    code = ("import sys, repro_torch\n"
+            "repro_torch.TrajectoryDB\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
