@@ -14,6 +14,10 @@ Phases, each printing one JSON line (``"phase": ...``):
    ``cuobjdump -sass`` counts each kernel's ``HGMMA`` and ``UTMALDG``
    instructions (every bf16 flash instantiation must have both; null
    where the toolkit has no ``cuobjdump``).
+   Then phase lint: ``python -m repro_torch.lint src/repro_torch
+   --format=json`` must report 0 errors, KERN101 reading the very ``.cu``
+   sources just built (each ``extern "C"`` function matched to its
+   ``_build.SIGNATURES`` argtypes).
 3. kernels — each kernel against its plain PyTorch version on the card.
    The flash kernels (``FLASH_TOL``): head dims 16/32/64/128, g 1 and 4,
    S = T = 77 and 1,000, S = 45 < T = 333, float32 (the CUDA-core
@@ -49,7 +53,19 @@ Phases, each printing one JSON line (``"phase": ...``):
    ``distthresh_compact`` once per live pod per dispatch, with ≤ 2 syncs
    per group, no duplicate pair and ``RoutingStats`` covering every
    batch; the 1-pod plan once more under ``torch.profiler`` (busy
-   share).
+   share).  Then phase sentinel: the plans phases main and shard made
+   run once more under ``repro_torch.lint.sentinel.SyncSentinel`` (S1
+   main, S1 dense — also once with the dense path's blocking scalar
+   upload as it was before the sentinel found it — shard 1 pod, and 4
+   pods through a ``PodRouter``), one line each: the sentinel's fence
+   waits equal to the executors' ``num_syncs`` (≤ 2 per group), no
+   blocking read, no unfenced read of a staged copy, no synchronize
+   outside a fence, and the ATen sync warnings with their source lines;
+   then the positive controls (a read behind a 50 ms spin blocks once
+   and is blamed on its group scope; a staged copy read before its
+   fence is one unfenced read; ``torch.nonzero`` is an ATen sync).  The
+   serve tickets and the stream below run under the sentinel too, each
+   with a line of its own.
 5. modes   — C1 and C3 at scale 0.1 (C3 as the README configures it),
    pruning none/spatial/hierarchical × compaction
    fused/fused_rowloop/dense, all equal to the torch backend and the
@@ -116,11 +132,13 @@ CUDA is absent or the repository's ``src/`` is not beside it.
 """
 import dataclasses
 import json
+import linecache
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -937,17 +955,26 @@ def serve_path(db, main_res, card):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if plan is not None:
-            faults.arm(plan)
-        try:
-            t = broker.submit(qk, d)
-            submit_s = time.perf_counter() - t0
-            res = t.result()
-        finally:
-            faults.disarm()
-        torch.cuda.synchronize()
+
+        def run_ticket(plan=plan, qk=qk, t0=t0):
+            if plan is not None:
+                faults.arm(plan)
+            try:
+                t = broker.submit(qk, d)
+                return t, time.perf_counter() - t0, t.result()
+            finally:
+                faults.disarm()
+        # The ticket runs once, under the sync sentinel (phase sentinel's
+        # serve lines).
+        (t, submit_s, res), rep, runs, _ = watched(run_ticket)
         wall = time.perf_counter() - t0
         counts = {n: c for n, c in launches().items() if c}
+        slice_syncs = sum(sl.num_syncs for sl in t.slices())
+        check(slice_syncs == rep.explicit_syncs,
+              f"ticket {k}: slices report {slice_syncs} syncs, the "
+              f"sentinel counted {rep.explicit_syncs}")
+        sentinel_line(f"serve ticket {k}", rep, runs, wall, card,
+                      slices=len(t.slices()), slice_syncs=slice_syncs)
         steps = [(g.stage, g.before, g.after, g.group)
                  for g in t.health.degradations]
         check(t.state == "done", f"ticket {k}: {t.state}")
@@ -1095,12 +1122,19 @@ def stream_path(dev, card):
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, st = db.query_stream(q, d, backend="kernel")
-    torch.cuda.synchronize()
+    # The stream runs once, under the sync sentinel (phase sentinel's
+    # stream line); a re-issued straggler's run is waited for inside it.
+    (res, st), rep, runs, _ = watched(
+        lambda: db.query_stream(q, d, backend="kernel"))
     wall = time.perf_counter() - t0
     counts = {n: c for n, c in launches().items() if c}
     check(set(counts) == {"distthresh_compact"},
           f"stream launched {counts}")
+    check(st.groups <= len(runs) <= st.groups + st.reissued,
+          f"stream: {len(runs)} executor runs for {st.groups} groups and "
+          f"{st.reissued} re-issues")
+    sentinel_line("stream", rep, runs, wall, card, scheduler_groups=st.groups,
+                  reissued=st.reissued)
     base, base_wall = timed_query(db, "kernel")
     check(len(res) > 0, "stream produced no hits")
     err = same_rows(res, base, "query_stream vs query")
@@ -1114,6 +1148,281 @@ def stream_path(dev, card):
           "scheduler_wall_s": st.wall_seconds, "launches": counts,
           "max_abs_err_vs_query": err, "card": card})
     return db, base
+
+
+# ----------------------------------------------------------------------
+# The sync sentinel: what really crossed the device→host boundary.
+# ----------------------------------------------------------------------
+class Executions:
+    """Every executor run that starts inside the ``with`` block, with its
+    ``ExecStats.num_syncs`` and ``num_groups``, and how many are still
+    running: a scheduler's re-issued straggler may outlive the
+    ``query_stream`` call that started it."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.runs: list = []
+        self.running = 0
+        self.saved: list = []
+
+    def __enter__(self):
+        from repro_torch.core import executor
+        for cls in (executor.SyncExecutor, executor.PipelinedExecutor):
+            orig = cls.run
+
+            def run(obj, plan, _orig=orig):
+                with self.lock:
+                    self.running += 1
+                try:
+                    rs, st = _orig(obj, plan)
+                    with self.lock:
+                        self.runs.append((st.num_syncs, st.num_groups))
+                    return rs, st
+                finally:
+                    with self.lock:
+                        self.running -= 1
+            self.saved.append((cls, orig))
+            cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self.saved:
+            cls.run = orig
+        return False
+
+    def wait_idle(self, timeout: float = 120.0) -> None:
+        t_end = time.perf_counter() + timeout
+        while True:
+            with self.lock:
+                if self.running == 0:
+                    return
+            check(time.perf_counter() < t_end,
+                  f"{self.running} executor runs still running")
+            time.sleep(0.01)
+
+
+def watched(fn):
+    """``fn()`` under a ``SyncSentinel``, the window closed only once every
+    executor run it started has ended (the stream is synchronized just
+    outside it, so the window opens on an idle card).  Returns (result,
+    report, [(num_syncs, num_groups)] per run, window wall s)."""
+    from repro_torch.lint.sentinel import SyncSentinel
+    torch.cuda.synchronize()
+    with Executions() as ex:
+        t0 = time.perf_counter()
+        with SyncSentinel() as sen:
+            out = fn()
+            ex.wait_idle()
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return out, sen.report(), list(ex.runs), wall
+
+
+def aten_sites(rep) -> list:
+    """Each ATen sync warning's source line, with its count."""
+    out = []
+    for site, n in sorted(rep.aten_sites.items(), key=lambda kv: -kv[1]):
+        path, _, line = site.rpartition(":")
+        out.append({"site": os.path.relpath(path, ROOT)
+                    if path.startswith(ROOT) else path, "line": int(line),
+                    "count": n,
+                    "source": linecache.getline(path, int(line)).strip()})
+    return out
+
+
+def sentinel_line(path: str, rep, runs, wall: float, card: str,
+                  **extra) -> dict:
+    """Check one watched path and emit its line: the sentinel's explicit
+    syncs equal the executors' ``num_syncs`` summed over every run of the
+    window, each run within 2 syncs per group (a broker slice and a
+    scheduler worker call are one run each), and no blocking read, no
+    unfenced read, no synchronize outside a fence and no ATen sync."""
+    syncs = sum(n for n, _ in runs)
+    groups = sum(g for _, g in runs)
+    check(runs, f"sentinel {path}: no executor ran")
+    check(rep.explicit_syncs == syncs,
+          f"sentinel {path}: {rep.explicit_syncs} fence waits, the "
+          f"executors report {syncs}")
+    check(all(n <= 2 * g for n, g in runs),
+          f"sentinel {path}: a run over 2 syncs per group: {runs}")
+    check(rep.blocking_reads == 0 and rep.unfenced_reads == 0
+          and rep.other_syncs == 0,
+          f"sentinel {path}: {rep.blocking_reads} blocking reads, "
+          f"{rep.unfenced_reads} unfenced reads, {rep.other_syncs} other "
+          f"syncs ({rep.blocking_by_group}, {rep.unfenced_by_group})")
+    check(rep.aten_syncs == 0, f"sentinel {path}: {rep.aten_syncs} ATen "
+          f"syncs at {aten_sites(rep)}")
+    line = {"phase": "sentinel", "path": path, "groups": groups,
+            "num_syncs": syncs, "executions": len(runs),
+            "window_s": wall, "report": rep.to_json(),
+            "blocking_by_group": rep.to_json()["blocking_by_group"],
+            "aten_sites": aten_sites(rep), **extra, "card": card}
+    emit(line)
+    return line
+
+
+def sentinel_controls(dev, card) -> dict:
+    """Positive controls, so that a zero means something: a read of a
+    kernel's output behind a long-running launch blocks once and is
+    blamed on its group; a staged pinned copy read before its fence is
+    one unfenced read; ``torch.nonzero`` on the card is an ATen sync."""
+    from repro_torch.core.engine import _stage_to_host
+    from repro_torch.core.executor import Fence, _group_scope
+    from repro_torch.kernels.distthresh import distthresh_dense
+    from repro_torch.lint.sentinel import SyncSentinel
+    e_np, q_np = clustered(np.random.default_rng(7), 2000, 100, 4)
+    e = torch.from_numpy(e_np).to(dev)
+    qt = torch.from_numpy(q_np).to(dev).T.contiguous()
+    spin = int(1e8)                # ~50 ms of a spinning thread on the card
+    torch.cuda.synchronize()
+    out = {}
+    with SyncSentinel() as s:
+        with _group_scope("control:blocking"):
+            _, _, hit = distthresh_dense(e, qt, 2.0, device=dev)
+            torch.cuda._sleep(spin)       # behind the kernel, before the read
+            hit[0, 0].item()
+    rep = s.report()
+    check(rep.blocking_reads == 1
+          and rep.blocking_by_group == {"control:blocking": 1}
+          and rep.blocked_seconds > 0.01,
+          f"blocking control: {rep}")
+    out["blocking"] = {"blocking_reads": rep.blocking_reads,
+                       "blocking_by_group": rep.to_json()[
+                           "blocking_by_group"],
+                       "blocked_seconds": rep.blocked_seconds,
+                       "aten_syncs": rep.aten_syncs}
+    count = hit.sum(dtype=torch.int32)
+    torch.empty((), dtype=torch.int32, pin_memory=True)   # a cached block
+    torch.cuda.synchronize()
+    with SyncSentinel() as s:
+        torch.cuda._sleep(spin)
+        host = _stage_to_host({"count": count}, dev)
+        early = int(host["count"].numpy())      # before the fence
+        Fence(dev).wait()
+        late = int(host["count"])
+    rep = s.report()
+    check(rep.unfenced_reads == 1 and rep.ready_reads == 1
+          and rep.by_kind.get("unfenced:copy_incomplete") == 1
+          and rep.explicit_syncs == 1 and rep.other_syncs == 0,
+          f"unfenced control: {rep}")
+    check(late == int(hit.sum()), "the fenced read is wrong")
+    out["unfenced"] = {"unfenced_reads": rep.unfenced_reads,
+                       "copy_incomplete": rep.by_kind.get(
+                           "unfenced:copy_incomplete"),
+                       "stale_value_read": early != late,
+                       "ready_reads": rep.ready_reads}
+    torch.cuda.synchronize()
+    with SyncSentinel() as s:
+        torch.nonzero(hit)
+    rep = s.report()
+    check(rep.aten_syncs >= 1, f"nonzero control: {rep}")
+    out["aten"] = {"aten_syncs": rep.aten_syncs,
+                   "sites": aten_sites(rep)}
+    emit({"phase": "sentinel", "path": "positive controls", **out,
+          "card": card})
+    return out
+
+
+def _legacy_f32(x, device):
+    """``kernels.ref._f32`` before this slice: a host scalar copied to the
+    card with a blocking ``.to()``.  ``interval_math`` now makes its
+    ``inf`` through ``_f32`` too, so this puts back both of the dense
+    path's hidden syncs per dispatch (the threshold and ``inf``)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).reshape(())
+    return torch.tensor(float(x), dtype=torch.float32).to(device)
+
+
+def sentinel_path(db, main_res, dense_res, shard_res, shard_pol, card):
+    """Phase sentinel: the plans phases main and shard made, run again
+    (no planning) under the sentinel — the main path, the dense path (and
+    once with the blocking scalar uploads the dense path had before this
+    slice, which the sentinel's ATen count must see), the shard plan on 1
+    pod and through a ``PodRouter`` on 4 — then the positive controls.
+    The serve tickets and the stream are watched in their own phases."""
+    from repro_torch.core.distributed import PodRouter
+    from repro_torch.kernels import ref
+    q, d = db._sorted(db.scenario_queries)[0], db.scenario_d
+    lines = {}
+    be = db.backend("kernel")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = be.run(q, d, main_res.plan)        # unwatched, for the cost
+    torch.cuda.synchronize()
+    unwatched = (time.perf_counter() - t0, st.total_seconds)
+    (rs, st), rep, runs, wall = watched(
+        lambda: be.run(q, d, main_res.plan))
+    check(len(rs) == len(main_res), "sentinel main: rows differ")
+    lines["S1 main"] = sentinel_line(
+        "S1 main", rep, runs, wall, card, execute_s=st.total_seconds,
+        unwatched_window_s=unwatched[0], unwatched_execute_s=unwatched[1])
+    dense = db.backend("kernel", db.policy.with_(compaction="dense"))
+    (rs, st), rep, runs, wall = watched(
+        lambda: dense.run(q, d, dense_res.plan))
+    check(len(rs) == len(dense_res), "sentinel dense: rows differ")
+    lines["S1 dense"] = sentinel_line("S1 dense", rep, runs, wall, card,
+                                      execute_s=st.total_seconds)
+    fixed = ref._f32
+    ref._f32 = _legacy_f32
+    try:
+        (rs, st), rep, runs, wall = watched(
+            lambda: dense.run(q, d, dense_res.plan))
+    finally:
+        ref._f32 = fixed
+    check(rep.aten_syncs >= 2 * st.num_invocations and rep.explicit_syncs
+          == sum(n for n, _ in runs), f"legacy dense: {rep}")
+    emit({"phase": "sentinel", "path": "S1 dense, blocking scalar uploads "
+          "(before this slice)", "groups": sum(g for _, g in runs),
+          "num_syncs": sum(n for n, _ in runs), "window_s": wall,
+          "execute_s": st.total_seconds, "report": rep.to_json(),
+          "aten_sites": aten_sites(rep), "card": card})
+    pol1 = db.policy.with_(shard_use_kernel=True)
+    shard1 = db.backend("shard", pol1)
+    (rs, st), rep, runs, wall = watched(
+        lambda: shard1.run(q, d, shard_res.plan))
+    check(len(rs) == len(shard_res), "sentinel shard 1 pod: rows differ")
+    lines["S1 shard 1 pod"] = sentinel_line(
+        "S1 shard 1 pod", rep, runs, wall, card, execute_s=st.total_seconds)
+    router = PodRouter(db.backend("shard", shard_pol).engine)
+    (rs, st), rep, runs, wall = watched(
+        lambda: router.execute(q, d, shard_res.plan))
+    check(len(rs) == len(shard_res), "sentinel shard 4 pods: rows differ")
+    lines[f"S1 shard {SHARD_PODS} pods"] = sentinel_line(
+        f"S1 shard {SHARD_PODS} pods", rep, runs, wall, card,
+        execute_s=st.total_seconds)
+    sentinel_controls(torch.device("cuda", 0), card)
+    return lines
+
+
+def lint_path(card):
+    """Phase lint: ``python -m repro_torch.lint src/repro_torch
+    --format=json`` must report 0 errors; the ``.cu`` files that its walk
+    hands to KERN101 must be the very sources the build phase compiled
+    (``_build``'s list)."""
+    from repro_torch.kernels import _build
+    from repro_torch.lint import _expand
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.lint", "src/repro_torch",
+         "--format=json"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    payload = json.loads(proc.stdout)
+    check(proc.returncode == 0 and payload["counts"]["error"] == 0,
+          f"lint: rc {proc.returncode}, {payload['counts']}: "
+          f"{[v for v in payload['violations'] if v['severity'] == 'error']}")
+    read = sorted(os.path.relpath(f, ROOT)
+                  for p in payload["paths"]
+                  for f in _expand([os.path.join(ROOT, p)])
+                  if f.endswith(".cu"))
+    built = sorted(os.path.relpath(str(p), ROOT) for p in _build._sources())
+    check(read == built, f"lint: KERN101 read {read}, the build compiled "
+          f"{built}")
+    emit({"phase": "lint", "seconds": time.perf_counter() - t0,
+          "counts": payload["counts"],
+          "warnings": [f"{v['rule']} {v['path']}" for v in
+                       payload["violations"]],
+          "kern101_sources": read, "card": card})
 
 
 # ----------------------------------------------------------------------
@@ -1915,6 +2224,8 @@ def main() -> int:
           "sass": sass if sass is not None else
           "null: the toolkit has no cuobjdump"})
 
+    lint_path(card)
+
     t0 = time.perf_counter()
     checks = kernel_checks(dev)
     flash = flash_checks(dev)
@@ -1928,6 +2239,7 @@ def main() -> int:
     profile_main(s1, dense_res, card, "dense")
     shard_res, shard_pol, shard_counts = shard_path(s1, main_res, main_wall,
                                                     card)
+    sentinel_path(s1, main_res, dense_res, shard_res, shard_pol, card)
     dbs, path_counts, mode_results = mode_matrix(dev, card)
     shard_mode_counts = shard_modes(dbs, mode_results, card)
     rtree_path(dev, card)

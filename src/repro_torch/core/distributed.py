@@ -387,8 +387,8 @@ def pod_query_step(entries: np.ndarray, offsets: np.ndarray,
         if isinstance(out["pruned_tiles"], torch.Tensor):
             pruned_dev.append(out["pruned_tiles"].to(dev0, non_blocking=True))
         else:
-            pruned_host += int(out["pruned_tiles"])
-        num_tiles += int(out["num_tiles"])
+            pruned_host += out["pruned_tiles"]     # a host int already
+        num_tiles += out["num_tiles"]
         outs.append(out)
     res = _gather(outs, dev0, ("entry_idx", "query_idx", "t_enter", "t_exit"))
     # One pod: its scalars are the totals (views, no reduction launched).
@@ -904,8 +904,10 @@ class DistributedEngine:
             rows[:, 6] = rows[:, 7] = t_pad
             e = np.concatenate([e, rows], axis=0)
         out = self._fn(e, queries_packed, np.float32(d))
-        # One host read per batch: every tensor below is copied once.
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        # One host read per batch (the legacy driver's synchronous
+        # contract): every tensor below is copied once.
+        out = {k: v.cpu().numpy()         # lint: sync-point
+               for k, v in out.items()}
         if np.any(out["count"] > self.capacity):
             raise RuntimeError("per-shard result capacity overflow; retry "
                                "with larger capacity_per_shard")

@@ -18,7 +18,8 @@ import torch
 from repro_torch import faults
 from repro_torch.core.batching import BatchPlan
 from repro_torch.core.executor import (BatchStats, Dispatch,  # noqa: F401 (stable re-exports)
-                                       ExecStats, ResultSet, make_executor)
+                                       ExecStats, ResultSet, make_executor,
+                                       watch_staged)
 from repro_torch.core.index import DEFAULT_NUM_BINS, TemporalBinIndex
 from repro_torch.core.planner import (QueryPlan, as_query_plan,
                                       bucket_capacity as _bucket)
@@ -33,16 +34,19 @@ def _stage_to_host(out: dict, device: torch.device) -> dict:
     tensors on the current stream (no wait).  They hold the values once the
     device has passed a fence recorded after this call.  Counters the host
     already knows (Python ints) pass through; CPU outputs are already on
-    the host."""
+    the host.  While a sync sentinel watches, the staged tensors are handed
+    to it, so it can tell a read before the fence from one after."""
     if device.type != "cuda":
         return out
-    host = {}
+    host, staged = {}, []
     for k, v in out.items():
         if isinstance(v, torch.Tensor):
             h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
             h.copy_(v, non_blocking=True)
+            staged.append(h)
             v = h
         host[k] = v
+    watch_staged(staged, device)
     return host
 
 
@@ -220,7 +224,7 @@ class DistanceThresholdEngine:
 # Brute-force oracle (for tests): all pairs, no index, chunked.
 # ----------------------------------------------------------------------
 def brute_force(db: SegmentArray, queries: SegmentArray, d: float,
-                chunk: int = 2048, device="cuda") -> ResultSet:
+                chunk: int = 2048, device="cuda") -> ResultSet:  # lint: ignore[SYNC001] — synchronous oracle; per-chunk host reads are its contract, not a pipeline leak
     """All-pairs reference on the torch oracle: compares every entry to
     every query segment, ``chunk`` entries at a time (one host read per
     chunk — a synchronous oracle, not a pipeline)."""

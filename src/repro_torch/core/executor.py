@@ -24,7 +24,9 @@ are recorded and counted; there is nothing to wait for.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Protocol, runtime_checkable
 
@@ -34,6 +36,49 @@ import torch
 from repro_torch.core.batching import QueryBatch
 from repro_torch.core.errors import CapacityError
 from repro_torch.core.planner import QueryPlan
+
+
+# ----------------------------------------------------------------------
+# Dispatch-group attribution (lint/sentinel seam).
+# ----------------------------------------------------------------------
+#: Per-thread label of the dispatch group currently executing — published
+#: by both executors so observability layers (``repro_torch.lint.sentinel``'s
+#: read attribution) can blame a device→host stall on the group that
+#: performed it without the executors knowing the sentinel exists.
+#: Thread-local because the deadline scheduler runs whole groups on pool
+#: threads concurrently.
+_dispatch_context = threading.local()
+
+
+def current_group_label() -> str | None:
+    """The calling thread's active dispatch-group label (e.g.
+    ``"pipelined:finish:3"``), or ``None`` outside any group scope."""
+    return getattr(_dispatch_context, "label", None)
+
+
+@contextlib.contextmanager
+def _group_scope(label: str):
+    prev = getattr(_dispatch_context, "label", None)
+    _dispatch_context.label = label
+    try:
+        yield
+    finally:
+        _dispatch_context.label = prev
+
+
+#: Set by an active ``repro_torch.lint.sentinel.SyncSentinel`` (else
+#: ``None``): called with every dispatch's staged pinned host tensors and
+#: their device, so the sentinel can tell a fenced read of them from an
+#: unfenced one.
+_staging_hook = None
+
+
+def watch_staged(tensors, device: torch.device) -> None:
+    """Hand a dispatch's staged host tensors to the active sentinel; one
+    global read and nothing else when no sentinel watches."""
+    hook = _staging_hook
+    if hook is not None:
+        hook(tensors, device)
 
 
 # ----------------------------------------------------------------------
@@ -261,40 +306,42 @@ class SyncExecutor:
         parts: list[ResultSet] = []
         stats_by_idx: dict[int, BatchStats] = {}
         num_syncs = 0
-        for g in groups:
-            for i in g:
-                batch, capacity = plan.batches[i], plan.capacities[i]
-                if batch.num_candidates == 0:
-                    _record_empty(disp, batch)
-                    stats_by_idx[i] = _empty_stats(batch)
-                    continue
-                t0 = time.perf_counter()
-                dp = disp.dispatch(batch, capacity)
-                Fence(disp.device).wait()
-                kernel_s = time.perf_counter() - t0
-                num_syncs += 1
-                count = disp.count(dp)
-                retries = 0
-                retry_s = 0.0
-                while (cap2 := disp.retry_capacity(dp)) is not None:
-                    if retries >= self.max_capacity_retries:
-                        raise CapacityError(count, dp.capacity,
-                                            batch_index=i, retries=retries)
-                    t0r = time.perf_counter()
-                    dp = _redispatch(disp, dp, cap2)
+        for gi, g in enumerate(groups):
+            with _group_scope(f"sync:{gi}"):
+                for i in g:
+                    batch, capacity = plan.batches[i], plan.capacities[i]
+                    if batch.num_candidates == 0:
+                        _record_empty(disp, batch)
+                        stats_by_idx[i] = _empty_stats(batch)
+                        continue
+                    t0 = time.perf_counter()
+                    dp = disp.dispatch(batch, capacity)
                     Fence(disp.device).wait()
-                    retry_s += time.perf_counter() - t0r
+                    kernel_s = time.perf_counter() - t0
                     num_syncs += 1
                     count = disp.count(dp)
-                    retries += 1
-                part = disp.marshal(dp, count)
-                if part is not None:
-                    parts.append(part)
-                pt, nt = disp.tile_stats(dp)
-                stats_by_idx[i] = BatchStats(
-                    batch.size, batch.num_candidates,
-                    batch.size * batch.num_candidates, count, kernel_s,
-                    retries, retry_s, pruned_tiles=pt, num_tiles=nt)
+                    retries = 0
+                    retry_s = 0.0
+                    while (cap2 := disp.retry_capacity(dp)) is not None:
+                        if retries >= self.max_capacity_retries:
+                            raise CapacityError(
+                                count, dp.capacity, batch_index=i,
+                                retries=retries)
+                        t0r = time.perf_counter()
+                        dp = _redispatch(disp, dp, cap2)
+                        Fence(disp.device).wait()
+                        retry_s += time.perf_counter() - t0r
+                        num_syncs += 1
+                        count = disp.count(dp)
+                        retries += 1
+                    part = disp.marshal(dp, count)
+                    if part is not None:
+                        parts.append(part)
+                    pt, nt = disp.tile_stats(dp)
+                    stats_by_idx[i] = BatchStats(
+                        batch.size, batch.num_candidates,
+                        batch.size * batch.num_candidates, count, kernel_s,
+                        retries, retry_s, pruned_tiles=pt, num_tiles=nt)
         total = time.perf_counter() - t_begin
         stats = [stats_by_idx[i] for i in range(nb)]
         return (ResultSet.concatenate(parts),
@@ -336,60 +383,62 @@ class PipelinedExecutor:
 
         def dispatch_group(gi: int, g: list[int]) -> None:
             t0 = time.perf_counter()
-            for i in g:
-                batch = plan.batches[i]
-                if batch.num_candidates == 0:
-                    _record_empty(disp, batch)
-                    continue
-                slots[i] = disp.dispatch(batch, plan.capacities[i])
-            fences[gi] = Fence(disp.device)
+            with _group_scope(f"pipelined:dispatch:{gi}"):
+                for i in g:
+                    batch = plan.batches[i]
+                    if batch.num_candidates == 0:
+                        _record_empty(disp, batch)
+                        continue
+                    slots[i] = disp.dispatch(batch, plan.capacities[i])
+                fences[gi] = Fence(disp.device)
             timing["dispatch"] += time.perf_counter() - t0
 
         def finish_group(gi: int, g: list[int]) -> None:
             live = [i for i in g if i in slots]
             if not live:
                 return
-            t0 = time.perf_counter()
-            fences.pop(gi).wait()
-            timing["syncs"] += 1
-            for i in live:
-                counts[i] = disp.count(slots[i])
-            # Re-dispatch only overflowed batches; exact counts make one
-            # retry sufficient, so the bound only bites on adversarial
-            # capacities.
-            t_retry = time.perf_counter()
-            any_redo = False
-            while True:
-                redo = []
-                for i in live:
-                    cap2 = disp.retry_capacity(slots[i])
-                    if cap2 is None:
-                        continue
-                    if rounds.get(i, 0) >= self.max_capacity_retries:
-                        raise CapacityError(
-                            counts[i], slots[i].capacity, batch_index=i,
-                            retries=rounds.get(i, 0))
-                    rounds[i] = rounds.get(i, 0) + 1
-                    slots[i] = _redispatch(disp, slots[i], cap2)
-                    redo.append(i)
-                if not redo:
-                    break
-                any_redo = True
-                Fence(disp.device).wait()
+            with _group_scope(f"pipelined:finish:{gi}"):
+                t0 = time.perf_counter()
+                fences.pop(gi).wait()
                 timing["syncs"] += 1
-                for i in redo:
+                for i in live:
                     counts[i] = disp.count(slots[i])
-            retry_s = time.perf_counter() - t_retry if any_redo else 0.0
-            timing["sync"] += (time.perf_counter() - t0) - retry_s
-            grp_redo = [i for i in live if rounds.get(i, 0)]
-            for i in grp_redo:
-                retried[i] = retry_s / len(grp_redo)
-            # Host-side marshalling; the next group's device work is
-            # already queued, so this overlaps compute.
-            for i in live:
-                part = disp.marshal(slots[i], counts[i])
-                if part is not None:
-                    parts[i] = part
+                # Re-dispatch only overflowed batches; exact counts make one
+                # retry sufficient, so the bound only bites on adversarial
+                # capacities.
+                t_retry = time.perf_counter()
+                any_redo = False
+                while True:
+                    redo = []
+                    for i in live:
+                        cap2 = disp.retry_capacity(slots[i])
+                        if cap2 is None:
+                            continue
+                        if rounds.get(i, 0) >= self.max_capacity_retries:
+                            raise CapacityError(
+                                counts[i], slots[i].capacity, batch_index=i,
+                                retries=rounds.get(i, 0))
+                        rounds[i] = rounds.get(i, 0) + 1
+                        slots[i] = _redispatch(disp, slots[i], cap2)
+                        redo.append(i)
+                    if not redo:
+                        break
+                    any_redo = True
+                    Fence(disp.device).wait()
+                    timing["syncs"] += 1
+                    for i in redo:
+                        counts[i] = disp.count(slots[i])
+                retry_s = time.perf_counter() - t_retry if any_redo else 0.0
+                timing["sync"] += (time.perf_counter() - t0) - retry_s
+                grp_redo = [i for i in live if rounds.get(i, 0)]
+                for i in grp_redo:
+                    retried[i] = retry_s / len(grp_redo)
+                # Host-side marshalling; the next group's device work is
+                # already queued, so this overlaps compute.
+                for i in live:
+                    part = disp.marshal(slots[i], counts[i])
+                    if part is not None:
+                        parts[i] = part
 
         for gi, g in enumerate(groups):
             dispatch_group(gi, g)
@@ -432,5 +481,6 @@ def make_executor(dispatcher: BatchDispatcher, *, pipeline: bool,
 
 __all__ = [
     "BatchDispatcher", "BatchStats", "Dispatch", "ExecStats", "Fence",
-    "PipelinedExecutor", "ResultSet", "SyncExecutor", "make_executor",
+    "PipelinedExecutor", "ResultSet", "SyncExecutor", "current_group_label",
+    "make_executor", "watch_staged",
 ]

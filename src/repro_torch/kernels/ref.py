@@ -36,10 +36,12 @@ _B_EPS = 1e-12
 
 
 def _f32(x, device) -> torch.Tensor:
-    """``x`` as a float32 0-dim tensor (rounded once, like ``np.float32``)."""
+    """``x`` as a float32 0-dim tensor (rounded once, like ``np.float32``).
+    Filled on ``device`` rather than copied there: a blocking upload of a
+    host scalar would wait for the device's stream to drain."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32).reshape(())
-    return torch.tensor(float(x), dtype=torch.float32).to(device)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
 def interval_math(e8, q8, d: torch.Tensor):
@@ -85,7 +87,7 @@ def interval_math(e8, q8, d: torch.Tensor):
     b = 2.0 * (drx * dvx + dry * dvy + drz * dvz)
     c = drx * drx + dry * dry + drz * drz - d * d
 
-    inf = torch.tensor(float("inf"), dtype=a.dtype, device=a.device)
+    inf = _f32(float("inf"), a.device)     # a is float32: see the callers
 
     # calcTimeInterval: {t : a t^2 + b t + c <= 0} as [rlo, rhi].
     disc = b * b - 4.0 * a * c

@@ -43,7 +43,12 @@ def test_port_has_modules():
             "repro_torch.models.convert", "repro_torch.kernels.flashattn",
             "repro_torch.kernels._launch", "repro_torch.serve.engine",
             "repro_torch.serve.batcher", "repro_torch.core.rtree",
-            "repro_torch.core.distributed"} <= names
+            "repro_torch.core.distributed", "repro_torch.lint",
+            "repro_torch.lint.__main__", "repro_torch.lint.astutils",
+            "repro_torch.lint.config", "repro_torch.lint.sentinel",
+            "repro_torch.lint.rules", "repro_torch.lint.rules.sync",
+            "repro_torch.lint.rules.kern", "repro_torch.lint.rules.dead",
+            "repro_torch.lint.rules.fault"} <= names
 
 
 def test_import_loads_neither_jax_nor_repro():
