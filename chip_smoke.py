@@ -21,8 +21,9 @@ Phases, each printing one JSON line (``"phase": ...``):
 3. kernels — each kernel against its plain PyTorch version on the card.
    The flash kernels (``FLASH_TOL``): head dims 16/32/64/128, g 1 and 4,
    S = T = 77 and 1,000, S = 45 < T = 333, float32 (the CUDA-core
-   kernel) and bf16 (the tensor-core kernel), and bf16 at the llm
-   phase's prefill shape.  The distance kernels: on
+   kernel) and bf16 (the tensor-core kernel), and bf16 at the prefill
+   shapes of the three llm phases (granite hd 64, g 4; qwen3 hd 128,
+   g 8; musicgen hd 64, g 1; S = T = 1,024).  The distance kernels: on
    seeded random tiles with the degenerate cases (zero-length extent, zero
    relative velocity, tangent roots, disjoint intervals), at 256×256,
    64×32, 40×24 and 32×320 tiles (the row-loop kernels' register and
@@ -108,15 +109,33 @@ Phases, each printing one JSON line (``"phase": ...``):
    layer of the prefill and never in decode.  The prefill's last logits
    with the kernel are held against the same weights with the plain
    version patched in (``LLM_LOGIT_ATOL``, and the same argmax for
-   every prompt).
+   every prompt).  Then phase llm_moe: the granite model freed,
+   qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts,
+   top-8, ``qk_norm``, bf16, 61 GB of seeded random weights) through
+   ``ServeEngine.generate`` on the same 8 prompt lengths, twice (equal
+   tokens, 48 flash launches per prefill, none in decode); every
+   layer's flash call held against the plain version on that layer's
+   own q, k and v (``FLASH_TOL``); the prefill's last logits and top-k
+   routes with the plain attention patched in, printed and not gated
+   (one route flip moves a token's whole FFN); prefill and decode
+   rates, one prefill and one decode step under ``torch.profiler``,
+   the capacity and dropped assignments per layer, and the prefill and
+   one decode step under ``SyncSentinel``: no ATen sync from
+   ``models/moe.py``.  Then phase llm_embed: musicgen-large (48 layers,
+   embedding inputs) through ``transformer.prefill`` on seeded
+   embeddings (8 × 1,024) and 32 ``decode_step`` calls on seeded (8,
+   2,048) embeddings, twice (equal logits, 48 flash launches per
+   prefill, none per step), its last prefill logits within
+   ``LLM_LOGIT_ATOL`` of the plain attention's with equal argmax.
 9. timing  — each kernel's time on the largest dispatch of the path its
    launches are counted on (CUDA graph of repeated wrapper calls, so host
    overhead is excluded), its plain version's time, and its bound on this
    card; the row-loop kernels at the shapes of their chunk twins (the
    compact kernels with their grid's block count); the flash kernel at
    the llm phase's prefill shape, beside ``scaled_dot_product_attention``
-   (``library_ms``, timed here only), and the float32 flash kernel at the
-   same shape in float32 (phase timing_flash_f32).
+   (``library_ms``, timed here only), the float32 flash kernel at the
+   same shape in float32 (phase timing_flash_f32), and the bf16 flash
+   kernel at qwen3's prefill shape (phase timing_flash_moe).
 
 Every ``backend="kernel"`` or ``"shard"`` run sets the launch counters
 to 0 just before it and reads them just after (``kernel_path``,
@@ -130,7 +149,9 @@ and power-limit line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script catches nothing and exits non-zero, also when
 CUDA is absent or the repository's ``src/`` is not beside it.
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import linecache
 import os
@@ -588,16 +609,19 @@ def flash_close(a, b, v, g: int, dtype) -> float:
     return float(diff.max())
 
 
-#: The llm phase's prefill shape for the flash kernel (granite-3-2b, 8
-#: prompts in the 1024 bucket): (BKV, g, S = T, hd).
+#: The llm phases' prefill shapes for the flash kernel (8 prompts in the
+#: 1024 bucket), as (BKV, g, S = T, hd): granite-3-2b (phase llm),
+#: qwen3-moe-30b-a3b (llm_moe) and musicgen-large (llm_embed).
 SERVE_FLASH = (64, 4, 1024, 64)
+MOE_FLASH = (32, 8, 1024, 128)
+EMBED_FLASH = (256, 1, 1024, 64)
 
 
 def flash_checks(dev) -> dict:
     """The flash kernel against its plain version on seeded normal
     inputs: every head dim, g 1 and 4, S = T ragged, S < T windowed,
     float32 (the CUDA-core kernel) and bf16 (the tensor-core kernel); and
-    bf16 at the serving shape."""
+    bf16 at the three llm phases' prefill shapes."""
     from repro_torch.kernels import flashattn as fa
     gen = torch.Generator(device=dev).manual_seed(2026)
     err = {str(dt): 0.0 for dt in FLASH_TOL}
@@ -619,9 +643,9 @@ def flash_checks(dev) -> dict:
                 for s, t in ((77, 77), (1000, 1000), (45, 333)):
                     case(dtype, 2, g, s, t, hd)
                     cases += 1
-    bkv, g, s, hd = SERVE_FLASH
-    case(torch.bfloat16, bkv, g, s, s, hd)
-    cases += 1
+    for bkv, g, s, hd in (SERVE_FLASH, MOE_FLASH, EMBED_FLASH):
+        case(torch.bfloat16, bkv, g, s, s, hd)
+        cases += 1
     torch.cuda.synchronize()
     return {"cases": cases, "max_abs_err": max(err.values()),
             "max_abs_err_by_dtype": err,
@@ -1805,6 +1829,29 @@ def rtree_path(dev, card):
 LLM_ARCH, LLM_PROMPTS, LLM_NEW_TOKENS = "granite-3-2b", 8, 32
 
 
+def llm_prompts(vocab: int):
+    """The llm phases' 8 seeded prompts of 64 to 1,000 tokens below
+    ``vocab`` (lengths equal in every phase): (lengths, prompts, bucket
+    1024)."""
+    from repro_torch.serve import engine
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1001, LLM_PROMPTS)
+    lens[0] = 1000                              # bucket 1024
+    prompts = [rng.integers(1, vocab, n).tolist() for n in lens]
+    s = engine._bucket(int(lens.max()))
+    check(s == 1024, f"bucket {s}")
+    return lens, prompts, s
+
+
+def prompt_batch(prompts, s: int, dev) -> dict:
+    """The prompts left-padded with 0 to ``s``, as ``generate`` pads
+    them, on the card."""
+    toks = np.full((len(prompts), s), 0, np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, s - len(p):] = p
+    return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
 def llm_path(dev, card):
     """``ServeEngine.generate`` on granite-3-2b (40 layers, bf16, random
     weights from a seeded generator on the card), run twice; then one
@@ -1815,74 +1862,101 @@ def llm_path(dev, card):
     from repro_torch.kernels import flashattn as fa
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
-    from repro_torch.serve import engine
     cfg = ARCHS[LLM_ARCH]
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    model = T.init_params(
-        cfg, generator=torch.Generator(device=dev).manual_seed(0),
-        device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    norm_scales = (2 * cfg.num_layers + 1) * cfg.d_model
-    check(n_params - norm_scales == cfg.param_count(),
-          f"{n_params} parameters, {norm_scales} of them norm scales, "
-          f"against param_count() {cfg.param_count()}")
+    model, init_s = make_model(cfg, dev)
+    runs, batch, last = serve_runs(cfg, model, dev)
+    b = runs["prompts"]
+    with torch.inference_mode():
+        # The same prefill with the plain attention in the model.
+        with patched(attention, "flashattn", fa.flashattn_plain):
+            plain_logits, _ = T.prefill(cfg, model, batch,
+                                        max_len=runs["bucket"],
+                                        last_only=True)
+        diff = float((plain_logits[:, -1] - last).abs().max())
+        agree = int((plain_logits[:, -1].argmax(-1) ==
+                     last.argmax(-1)).sum())
+    check(diff <= LLM_LOGIT_ATOL, f"prefill logits: kernel vs plain "
+          f"{diff} > {LLM_LOGIT_ATOL}")
+    check(agree == b, f"prefill argmax: kernel and plain agree on {agree} "
+          f"of {b} prompts")
+    emit({"phase": "llm", "arch": LLM_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "param_count": cfg.param_count(), "init_s": init_s, **runs,
+          "logits_max_abs_diff_vs_plain": diff,
+          "logits_atol": LLM_LOGIT_ATOL,
+          "argmax_agree": f"{agree}/{b}",
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "card": card})
+    return cfg.num_layers, flash_shape(cfg, b, runs["bucket"])
 
-    rng = np.random.default_rng(0)
-    lens = rng.integers(64, 1001, LLM_PROMPTS)
-    lens[0] = 1000                              # bucket 1024
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
-    s = engine._bucket(int(lens.max()))
-    check(s == 1024, f"bucket {s}")
-    eng = engine.ServeEngine(cfg, model, max_len=s + LLM_NEW_TOKENS,
-                             device=dev)
+
+def flash_shape(cfg, b: int, s: int) -> dict:
+    """The flash kernel's shape at a prefill of ``b`` prompts of ``s``
+    tokens of ``cfg``."""
+    from repro_torch.models import transformer as T
+    kvh = cfg.num_kv_heads
+    g = cfg.num_heads // kvh
+    return dict(bh=b * kvh * g, bkv=b * kvh, s=s, t=s,
+                hd=cfg.resolved_head_dim, g=g, kv_heads=kvh,
+                dtype=T._dtype(cfg))
+
+
+def serve_runs(cfg, model, dev):
+    """``ServeEngine.generate`` on the llm phases' prompts with
+    ``LLM_NEW_TOKENS`` new tokens, twice: equal outputs, every new token
+    below the vocabulary size, and ``flashattn`` launched once per layer
+    of the prefill and never in decode.  Then one prefill and the decode
+    steps on their own, each timed and counted on its own, and one more
+    of each under ``torch.profiler``.  Returns (the phase line's fields,
+    the prompts' token batch, the prefill's last logits)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+    lens, prompts, s = llm_prompts(cfg.vocab_size)
+    b, n_new, layers = len(prompts), LLM_NEW_TOKENS, cfg.num_layers
+    eng = engine.ServeEngine(cfg, model, max_len=s + n_new, device=dev)
     walls, outs = [], []
     for _ in range(2):
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs.append(eng.generate(prompts, LLM_NEW_TOKENS))
+        outs.append(eng.generate(prompts, n_new))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         counts = {n: c for n, c in launches().items() if c}
-        check(counts == {"flashattn": cfg.num_layers},
-              f"generate launched {counts}; one flashattn per layer of "
-              f"the prefill and none in decode belong to it")
-        if len(walls) == 1:
-            gen_counts = counts
-    check(outs[0] == outs[1], "generate is not deterministic")
+        check(counts == {"flashattn": layers},
+              f"{cfg.name} generate launched {counts}; one flashattn per "
+              f"layer of the prefill and none in decode belong to it")
+    check(outs[0] == outs[1], f"{cfg.name} generate is not deterministic")
     for p, o in zip(prompts, outs[0]):
-        check(o[:len(p)] == p and len(o) == len(p) + LLM_NEW_TOKENS,
+        check(o[:len(p)] == p and len(o) == len(p) + n_new,
               "generate: prompt or length")
         check(all(0 <= t < cfg.vocab_size for t in o[len(p):]),
               "generate: a token outside the vocabulary")
 
     # The prefill and the decode steps on their own, counted on their own.
-    toks = np.full((len(prompts), s), 0, np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, s - len(p):] = p
-    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    batch = prompt_batch(prompts, s, dev)
     with torch.inference_mode():
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = T.prefill(cfg, model, batch,
-                                  max_len=s + LLM_NEW_TOKENS, last_only=True)
+        logits, cache = T.prefill(cfg, model, batch, max_len=s + n_new,
+                                  last_only=True)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = launches()["flashattn"]
-        check(prefill_launches == cfg.num_layers,
+        check(prefill_launches == layers,
               f"prefill launched flashattn {prefill_launches} times")
         last = logits[:, -1]
+        check(torch.isfinite(last).all().item(), "non-finite logits")
         nxt = torch.argmax(last, dim=-1)
         check(nxt.cpu().tolist() == [o[len(p)] for p, o in
                                      zip(prompts, outs[0])],
               "prefill's first token differs from generate's")
         reset_launches()
         t0 = time.perf_counter()
-        for i in range(LLM_NEW_TOKENS):
+        for i in range(n_new):
             step, cache = T.decode_step(cfg, model, cache, nxt, s + i)
             nxt = torch.argmax(step, dim=-1)
         torch.cuda.synchronize()
@@ -1890,60 +1964,264 @@ def llm_path(dev, card):
         check(not any(launches().values()), "decode launched a kernel")
         # One more decode step and one prefill under the profiler: device
         # busy share and device work per call.
-        _, step_wall, step_busy, step_events, step_top = profiled(
-            lambda: T.decode_step(cfg, model, cache, nxt,
-                                  s + LLM_NEW_TOKENS - 1))
-        _, pre_wall, pre_busy, pre_events, pre_top = profiled(
-            lambda: T.prefill(cfg, model, batch, max_len=s, last_only=True))
+        _, step_prof = profile_line(lambda: T.decode_step(
+            cfg, model, cache, nxt, s + n_new - 1))
+        del cache
+        _, pre_prof = profile_line(lambda: T.prefill(
+            cfg, model, batch, max_len=s, last_only=True))
+    return {"prompts": b, "prompt_tokens": [int(n) for n in lens],
+            "bucket": s, "new_tokens": n_new, "generate_wall_s": walls,
+            "prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
+            "decode_s": decode_s, "decode_tokens_per_s": b * n_new / decode_s,
+            "profile": {"decode_step": step_prof, "prefill": pre_prof},
+            "launches_generate": {"flashattn": layers},
+            "launches_per_prefill": prefill_launches,
+            "launches_per_decode_step": 0}, batch, last
 
-        # The same prefill with the plain attention in the model.
-        try:
-            attention.flashattn = fa.flashattn_plain
-            plain_logits, _ = T.prefill(cfg, model, batch, max_len=s,
-                                        last_only=True)
-        finally:
-            attention.flashattn = fa.flashattn
-        diff = float((plain_logits[:, -1] - last).abs().max())
-        agree = int((plain_logits[:, -1].argmax(-1) ==
-                     last.argmax(-1)).sum())
-    check(torch.isfinite(last).all().item(), "non-finite logits")
-    check(diff <= LLM_LOGIT_ATOL, f"prefill logits: kernel vs plain "
-          f"{diff} > {LLM_LOGIT_ATOL}")
-    check(agree == len(prompts), f"prefill argmax: kernel and plain agree "
-          f"on {agree} of {len(prompts)} prompts")
-    b, kvh = len(prompts), cfg.num_kv_heads
-    g = cfg.num_heads // kvh
-    emit({"phase": "llm", "arch": LLM_ARCH, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "dtype": cfg.dtype,
-          "parameters": n_params, "param_count": cfg.param_count(),
-          "init_s": init_s, "prompts": len(prompts),
-          "prompt_tokens": [int(n) for n in lens], "bucket": s,
-          "new_tokens": LLM_NEW_TOKENS, "generate_wall_s": walls,
-          "prefill_s": prefill_s,
-          "prefill_tokens_per_s": b * s / prefill_s,
-          "decode_s": decode_s,
-          "decode_tokens_per_s": b * LLM_NEW_TOKENS / decode_s,
-          "profile": {
-              "decode_step": {"wall_s": step_wall, "device_busy_s":
-                              step_busy, "device_busy_share":
-                              step_busy / step_wall, "device_events":
-                              step_events, "device_us_by_name": step_top},
-              "prefill": {"wall_s": pre_wall, "device_busy_s": pre_busy,
-                          "device_busy_share": pre_busy / pre_wall,
-                          "device_events": pre_events,
-                          "device_us_by_name": pre_top}},
-          "launches_generate": gen_counts,
-          "launches_per_prefill": prefill_launches,
-          "launches_per_decode_step": 0,
-          "logits_max_abs_diff_vs_plain": diff,
-          "logits_atol": LLM_LOGIT_ATOL,
-          "argmax_agree": f"{agree}/{b}",
+
+def profile_line(fn):
+    """``fn()`` once under ``torch.profiler``: its result, and the wall,
+    device busy time and share, device events and top device names."""
+    out, wall, busy, events, top = profiled(fn)
+    return out, {"wall_s": wall, "device_busy_s": busy,
+                 "device_busy_share": busy / wall, "device_events": events,
+                 "device_us_by_name": top}
+
+
+# ----------------------------------------------------------------------
+# LLM serving: qwen3-moe-30b-a3b (experts) and musicgen-large (embedding
+# inputs) at full width and depth.
+# ----------------------------------------------------------------------
+MOE_ARCH, EMBED_ARCH = "qwen3-moe-30b-a3b", "musicgen-large"
+
+
+def free_card() -> None:
+    """Return the cached blocks of the models an earlier phase dropped,
+    so that the next model's weights fit."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, value):
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def make_model(cfg, dev):
+    """Seeded random weights of ``cfg`` made on the card: (model, init
+    s), the parameter count checked against ``param_count()`` plus the
+    norm scales (two per layer, the final one, and with ``qk_norm`` a q
+    and a k norm of the head dim per layer)."""
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    model = T.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model
+    if cfg.qk_norm:
+        norms += 2 * cfg.num_layers * cfg.resolved_head_dim
+    check(n_params - norms == cfg.param_count(),
+          f"{cfg.name}: {n_params} parameters, {norms} of them norm "
+          f"scales, against param_count() {cfg.param_count()}")
+    return model, init_s
+
+
+def checked_flash(errs: list):
+    """A stand-in for the ``flashattn`` name ``models.attention`` calls:
+    the kernel, held against the plain version on the same q, k and v
+    (``FLASH_TOL``), each call's max |diff| appended to ``errs``."""
+    from repro_torch.kernels import flashattn as fa
+
+    def flash(q, k, v, *, g):
+        out = fa.flashattn(q, k, v, g=g)
+        errs.append(flash_close(out, fa.flashattn_plain(q, k, v, g=g), v,
+                                g, q.dtype))
+        return out
+    return flash
+
+
+def recording_route(routes: list):
+    """A stand-in for ``models.moe.route`` that appends each call's
+    (experts (T, K), dropped assignments, capacity) to ``routes``, all
+    left on the card."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recorded(*args, **kwargs):
+        out = route(*args, **kwargs)
+        _, _, experts, slot, cap = out
+        routes.append((experts, (slot == kwargs["num_experts"] * cap).sum(),
+                       cap))
+        return out
+    return recorded
+
+
+def llm_moe_path(dev, card):
+    """``ServeEngine.generate`` on qwen3-moe-30b-a3b (48 layers of 128
+    experts, top-8, bf16, random weights from a seeded generator on the
+    card), run twice; the prefill and the decode steps timed and profiled
+    on their own; every layer's flash call checked on its own inputs; the
+    prefill's last logits and routes with the plain attention patched in;
+    the MoE layers' host syncs.  Returns the flash launches of the first
+    run and the prefill's flash-kernel shape."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flashattn as fa
+    from repro_torch.lint.sentinel import SyncSentinel
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as T
+    cfg = ARCHS[MOE_ARCH]
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, init_s = make_model(cfg, dev)
+    runs, batch, last = serve_runs(cfg, model, dev)
+    b, s, layers = runs["prompts"], runs["bucket"], cfg.num_layers
+    with torch.inference_mode():
+        # Every layer's flash call against the plain version on its own
+        # inputs; the routes and drops of that prefill, and of the same
+        # prefill with the plain attention.
+        errs, routes, plain_routes = [], [], []
+        with patched(attention, "flashattn", checked_flash(errs)), \
+                patched(moe, "route", recording_route(routes)):
+            checked, _ = T.prefill(cfg, model, batch, max_len=s,
+                                   last_only=True)
+        check(len(errs) == layers and len(routes) == layers,
+              f"{len(errs)} flash calls, {len(routes)} MoE layers")
+        check(torch.equal(checked[:, -1], last),
+              "the checked prefill's logits differ from the prefill's")
+        with patched(attention, "flashattn", fa.flashattn_plain), \
+                patched(moe, "route", recording_route(plain_routes)):
+            plain, _ = T.prefill(cfg, model, batch, max_len=s,
+                                 last_only=True)
+        diff = float((plain[:, -1] - last).abs().max())
+        agree = int((plain[:, -1].argmax(-1) == last.argmax(-1)).sum())
+        flips = torch.stack([
+            (a.sort(-1).values != c.sort(-1).values).any(-1).sum()
+            for (a, _, _), (c, _, _) in zip(routes, plain_routes)])
+        flips = flips.tolist()
+        dropped = torch.stack([d for _, d, _ in routes]).tolist()
+        cap = routes[0][2]
+        del routes, plain_routes, checked, plain
+
+        # Host syncs of the prefill and one decode step.
+        torch.cuda.synchronize()
+        with SyncSentinel() as sen:
+            lg, cache = T.prefill(cfg, model, batch, max_len=s + 1,
+                                  last_only=True)
+            T.decode_step(cfg, model, cache, lg[:, -1].argmax(-1), s)
+        torch.cuda.synchronize()
+        del cache
+        rep = sen.report()
+        sites = aten_sites(rep)
+        moe_syncs = sum(x["count"] for x in sites
+                        if x["site"].endswith("models/moe.py"))
+        check(moe_syncs == 0, f"models/moe.py made {moe_syncs} host syncs: "
+              f"{sites}")
+    emit({"phase": "llm_moe", "arch": MOE_ARCH, "layers": layers,
+          "d_model": cfg.d_model, "experts": cfg.num_experts,
+          "experts_per_token": cfg.experts_per_token, "d_ff": cfg.d_ff,
+          "head_dim": cfg.resolved_head_dim, "qk_norm": cfg.qk_norm,
+          "dtype": cfg.dtype,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "param_count": cfg.param_count(), "init_s": init_s, **runs,
+          "flash_max_abs_err_per_layer": errs,
+          "flash_tol": list(FLASH_TOL[torch.bfloat16]),
+          "capacity_prefill": cap,
+          "assignments_per_layer": b * s * cfg.experts_per_token,
+          "dropped_per_layer": dropped,
+          "plain_attention": {
+              "logits_max_abs_diff": diff, "argmax_agree": f"{agree}/{b}",
+              "route_flips_per_layer": flips,
+              "route_flips": sum(flips), "gated": False},
+          "sentinel": {"aten_syncs": rep.aten_syncs, "aten_sites": sites,
+                       "moe_syncs": moe_syncs,
+                       "blocking_reads": rep.blocking_reads},
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           "card": card})
-    shape = dict(bh=b * kvh * g, bkv=b * kvh, s=s, t=s,
-                 hd=cfg.resolved_head_dim, g=g, kv_heads=kvh,
-                 dtype=T._dtype(cfg))
-    return gen_counts["flashattn"], shape
+    return layers, flash_shape(cfg, b, s)
+
+
+def llm_embed_path(dev, card):
+    """musicgen-large (48 layers, bf16, embedding inputs, seeded random
+    weights made on the card): a prefill on seeded embeddings (8 ×
+    1,024 × d) and 32 decode steps, each on a seeded (8, d) embedding,
+    run twice (equal logits); then the prefill's last logits with the
+    plain attention patched in.  Returns the flash launches per
+    prefill."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flashattn as fa
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    cfg = ARCHS[EMBED_ARCH]
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, init_s = make_model(cfg, dev)
+    b, s, n_new, layers = LLM_PROMPTS, 1024, LLM_NEW_TOKENS, cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(1)
+    emb = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    steps = torch.randn((n_new, b, cfg.d_model), generator=gen, device=dev)
+
+    def run():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(cfg, model, {"embeddings": emb},
+                                  max_len=s + n_new, last_only=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pre = dict(launches())
+        reset_launches()
+        out = [logits[:, -1]]
+        for i in range(n_new):
+            step, cache = T.decode_step(cfg, model, cache, steps[i], s + i)
+            out.append(step)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check({n: c for n, c in pre.items() if c} == {"flashattn": layers},
+              f"{EMBED_ARCH} prefill launched {pre}")
+        check(not any(launches().values()),
+              f"{EMBED_ARCH} decode launched {launches()}")
+        return torch.stack(out), t1 - t0, t2 - t1
+
+    with torch.inference_mode():
+        runs = [run() for _ in range(2)]
+        check(torch.equal(runs[0][0], runs[1][0]),
+              f"{EMBED_ARCH}: two runs gave different logits")
+        last = runs[0][0][0]
+        with patched(attention, "flashattn", fa.flashattn_plain):
+            plain, _ = T.prefill(cfg, model, {"embeddings": emb}, max_len=s,
+                                 last_only=True)
+        diff = float((plain[:, -1] - last).abs().max())
+        agree = int((plain[:, -1].argmax(-1) == last.argmax(-1)).sum())
+    check(torch.isfinite(runs[0][0]).all().item(), "non-finite logits")
+    check(diff <= LLM_LOGIT_ATOL, f"{EMBED_ARCH} prefill logits: kernel "
+          f"vs plain {diff} > {LLM_LOGIT_ATOL}")
+    check(agree == b, f"{EMBED_ARCH} prefill argmax: kernel and plain "
+          f"agree on {agree} of {b}")
+    emit({"phase": "llm_embed", "arch": EMBED_ARCH, "layers": layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "mlp_type": cfg.mlp_type,
+          "input_mode": cfg.input_mode, "dtype": cfg.dtype,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "param_count": cfg.param_count(), "init_s": init_s,
+          "batch": b, "prompt_len": s, "decode_steps": n_new,
+          "prefill_s": [r[1] for r in runs],
+          "prefill_tokens_per_s": [b * s / r[1] for r in runs],
+          "decode_s": [r[2] for r in runs],
+          "decode_tokens_per_s": [b * n_new / r[2] for r in runs],
+          "launches_per_prefill": layers, "launches_per_decode_step": 0,
+          "logits_max_abs_diff_vs_plain": diff,
+          "logits_atol": LLM_LOGIT_ATOL, "argmax_agree": f"{agree}/{b}",
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "card": card})
+    return layers
 
 
 # ----------------------------------------------------------------------
@@ -2138,7 +2416,7 @@ def kernel_timing(dev, s1, c3, counts, card):
 
 
 def flash_timing(dev, shape, n_launches, dtype=None):
-    """The flash kernel at the llm phase's prefill shape (seeded normal
+    """The flash kernel at an llm phase's prefill shape (seeded normal
     inputs), in the model's dtype or ``dtype``: kernel, plain version and
     ``scaled_dot_product_attention`` on the same tensors (SDPA is the
     yardstick only; the port never calls it)."""
@@ -2250,6 +2528,8 @@ def main() -> int:
     stream_db, stream_base = stream_path(dev, card)
     shard_stream(stream_db, stream_base, card)
     flash_launches, flash_shape = llm_path(dev, card)
+    moe_launches, moe_shape = llm_moe_path(dev, card)
+    embed_launches = llm_embed_path(dev, card)
     c3_live = path_counts[("C3", "hierarchical/fused")]
     c3_live_rowloop = path_counts[("C3", "hierarchical/fused_rowloop")]
     counts = {
@@ -2278,6 +2558,19 @@ def main() -> int:
     f32["launches_counted_on"] = ("none: the llm phase runs bf16; float32 "
                                   "inputs run this kernel (phase kernels)")
     emit({"phase": "timing_flash_f32", **f32, "card": card})
+    # The bf16 flash kernel at qwen3's prefill shape (hd 128, g 8).
+    moe_flash = flash_timing(dev, moe_shape, moe_launches)
+    moe_flash["launches_counted_on"] = (
+        f"{MOE_ARCH} ServeEngine.generate ({LLM_PROMPTS} prompts, bucket "
+        f"{moe_shape['s']}, {LLM_NEW_TOKENS} new tokens)")
+    emit({"phase": "timing_flash_moe", **moe_flash, "card": card})
+    by_name["flashattn"]["launches_other_paths"] = {
+        moe_flash["launches_counted_on"]: moe_launches,
+        f"{EMBED_ARCH} prefill (8 × 1,024 embeddings)": embed_launches}
+    by_name["flashattn"]["other_shapes"] = [{
+        k: moe_flash[k] for k in ("shape", "launches", "max_abs_err", "ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}]
     # The shard paths' launches of each kernel, each path's counters set
     # to 0 just before it and read just after.
     shard_launches = {

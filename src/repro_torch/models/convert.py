@@ -6,7 +6,10 @@ weights stacked on a leading L axis under ``layers``, ``embed/table``,
 every dense weight is (d_in, d_out).  :func:`params_from_jax` turns such a
 tree of numpy arrays (``jax.tree.map(np.asarray, params)``) into the state
 dict of :class:`repro_torch.models.transformer.LM`, transposing each dense
-weight to the (d_out, d_in) that ``nn.Linear`` holds.
+weight to the (d_out, d_in) that ``nn.Linear`` holds.  A mixture-of-experts
+layer's ``moe/{gate,up,down}`` keep their (E, d_in, d_out) layout, and its
+``moe/router`` stays float32 whatever the model dtype, as the reference
+keeps it (rounding it would move the routing).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 #: (path in one stacked reference layer, name in the port's layer module,
-#: dense weight to transpose).
+#: dense weight to transpose).  Paths absent from a model are skipped.
 _LAYER_KEYS = (
     (("ln1", "scale"), "ln1.scale", False),
     (("attn", "wq"), "attn.wq.weight", True),
@@ -29,7 +32,13 @@ _LAYER_KEYS = (
     (("mlp", "gate", "w"), "mlp.gate.weight", True),
     (("mlp", "up", "w"), "mlp.up.weight", True),
     (("mlp", "down", "w"), "mlp.down.weight", True),
+    (("moe", "router"), "moe.router", False),
+    (("moe", "gate"), "moe.gate", False),
+    (("moe", "up"), "moe.up", False),
+    (("moe", "down"), "moe.down", False),
 )
+#: Layer parameters held in float32 in every model.
+_FLOAT32 = {"moe.router"}
 
 
 def _get(tree, path):
@@ -41,12 +50,12 @@ def _get(tree, path):
 
 
 def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
-    """The port's state dict (CPU tensors in ``cfg.dtype``) for the
-    reference's parameter tree ``tree`` of numpy arrays; load it with
-    ``LM(cfg, device=...).load_state_dict(...)``."""
-    dtype = getattr(torch, cfg.dtype)
+    """The port's state dict (CPU tensors in ``cfg.dtype``, routers in
+    float32) for the reference's parameter tree ``tree`` of numpy arrays;
+    load it with ``LM(cfg, device=...).load_state_dict(...)``."""
+    model_dtype = getattr(torch, cfg.dtype)
 
-    def tensor(a) -> torch.Tensor:
+    def tensor(a, dtype=model_dtype) -> torch.Tensor:
         # numpy has no bfloat16: go through float32, which holds every
         # bfloat16 value exactly (a copy: the reference's arrays are
         # read-only).
@@ -64,8 +73,9 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
             raise ValueError(f"layers/{'/'.join(path)} holds "
                              f"{stacked.shape[0]} layers, not "
                              f"{cfg.num_layers}")
+        dtype = torch.float32 if name in _FLOAT32 else model_dtype
         for i in range(cfg.num_layers):
-            w = tensor(stacked[i])
+            w = tensor(stacked[i], dtype)
             state[f"layers.{i}.{name}"] = w.T.contiguous() if transpose else w
     return state
 

@@ -1,7 +1,12 @@
 """Decoder-only LM (the reference's ``repro/models/transformer.py``) for
-the ``attn`` block pattern without experts and with token inputs: the
-dense GQA transformers (granite-3-2b, starcoder2-3b, nemotron-4-15b,
-minicpm-2b, chameleon-34b's backbone).
+the ``attn`` block pattern: the dense GQA transformers (granite-3-2b,
+starcoder2-3b, nemotron-4-15b, minicpm-2b, chameleon-34b's backbone), the
+mixture-of-experts ones (qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b; the
+layer's FFN is ``models.moe``), and embedding inputs (musicgen-large,
+``input_mode="embeddings"``: ``batch["embeddings"]`` (B, S, D) in place
+of tokens, (B, D) per decode step, cast to the model dtype without
+``embed_scale``; the token table is built all the same, as the reference
+builds it).
 
 The parameters live in an ``nn.Module`` (:class:`LM`) whose layers are an
 ``nn.ModuleList`` of per-layer modules (the reference stacks them on a
@@ -10,10 +15,10 @@ leading L axis and scans); ``forward``, ``prefill``, ``init_cache`` and
 returns.  The decode cache is the reference's dict of (L, B, max_len,
 KVH, hd) tensors, written in place by ``decode_step``.
 
-Not ported yet (ROADMAP A.13): mixture-of-experts layers, the ``xlstm``
-and ``zamba`` block patterns, embedding inputs, and training's loss; each
-raises ``NotImplementedError``.  :func:`param_count` counts every
-configuration, as the reference does.
+Not ported yet (ROADMAP A.13): the ``xlstm`` and ``zamba`` block
+patterns and KV-head replication (``kv_replication != 1``, a launcher
+setting), which raise ``NotImplementedError``, and training's loss.
+:func:`param_count` counts every configuration, as the reference does.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention
 from repro_torch.models.layers import MLP, Embedding, RMSNorm, mlp_param_count
+from repro_torch.models.moe import MoE, moe_apply
 
 #: Mamba2's head width and causal-conv width (the reference's
 #: ``repro/models/ssm.py``), for :func:`param_count` only.
@@ -39,16 +45,12 @@ def _check_supported(cfg: ModelConfig) -> None:
     unported = []
     if cfg.block_pattern != "attn":
         unported.append(f"block_pattern={cfg.block_pattern!r}")
-    if cfg.is_moe:
-        unported.append("mixture-of-experts layers")
-    if cfg.input_mode != "tokens":
-        unported.append(f"input_mode={cfg.input_mode!r}")
     if cfg.kv_replication != 1:
         unported.append("KV-head replication (a launcher setting)")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported yet (ROADMAP "
-            f"A.13); the port runs dense token-input attention models")
+            f"A.13); the port runs the attn block pattern")
 
 
 class AttnLayer(nn.Module):
@@ -60,7 +62,10 @@ class AttnLayer(nn.Module):
             cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, qk_norm=cfg.qk_norm, **kw)
         self.ln2 = RMSNorm(cfg.d_model, **kw)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
+        if cfg.is_moe:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.num_experts, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
 
 
 class LM(nn.Module):
@@ -98,16 +103,18 @@ class LM(nn.Module):
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda") -> LM:
     """Random weights from ``generator`` (a generator of ``device``),
-    distributed as the reference's ``init_params``: projections normal /
-    sqrt(fan_in), embedding tables normal × 0.02, norm scales 1.  The
-    numbers differ
-    from the reference's (``jax.random`` is another generator);
-    ``convert.params_from_jax`` carries the reference's own weights."""
+    distributed as the reference's ``init_params``: projections, routers
+    and expert weights normal / sqrt(fan_in), embedding tables normal ×
+    0.02, norm scales 1.  The numbers differ from the reference's
+    (``jax.random`` is another generator); ``convert.params_from_jax``
+    carries the reference's own weights."""
     model = LM(cfg, device=device)
     for name, p in model.named_parameters():
         if name.endswith(".table"):
             std = 0.02
-        elif p.dim() == 2:                  # nn.Linear weight (d_out, d_in)
+        elif name.endswith(".router"):      # (d_model, E)
+            std = p.shape[0] ** -0.5
+        elif p.dim() in (2, 3):             # (d_out, d_in); (E, d_in, d_out)
             std = p.shape[1] ** -0.5
         else:
             p.fill_(1.0)
@@ -129,13 +136,33 @@ def _layer(cfg: ModelConfig, layer: AttnLayer, x: torch.Tensor,
     if return_kv:
         h, kv = h
     x = x + h * cfg.residual_scale
-    x = x + layer.mlp(layer.ln2(x)) * cfg.residual_scale
-    return (x, kv) if return_kv else x
+    h, aux = _ffn(cfg, layer, x)
+    x = x + h * cfg.residual_scale
+    return (x, aux, kv) if return_kv else (x, aux)
 
 
-def _embed(cfg: ModelConfig, model: LM, tokens) -> torch.Tensor:
-    tokens = torch.as_tensor(tokens, device=model.device)
-    return model.embed(tokens) * cfg.embed_scale
+def _ffn(cfg: ModelConfig, layer: AttnLayer, x: torch.Tensor):
+    """The layer's MLP or MoE on ln2(x): (h, MoE aux loss or None)."""
+    if cfg.is_moe:
+        return moe_apply(layer.moe, layer.ln2(x),
+                         num_experts=cfg.num_experts,
+                         experts_per_token=cfg.experts_per_token,
+                         capacity_factor=cfg.capacity_factor)
+    return layer.mlp(layer.ln2(x)), None
+
+
+def _embed(cfg: ModelConfig, model: LM, inputs) -> torch.Tensor:
+    """The first hidden state: embeddings (..., D) cast to the model
+    dtype, or tokens (...) embedded and scaled."""
+    x = torch.as_tensor(inputs, device=model.device)
+    if cfg.input_mode == "embeddings":
+        return x.to(_dtype(cfg))
+    return model.embed(x) * cfg.embed_scale
+
+
+def _batch_inputs(cfg: ModelConfig, batch: dict):
+    return batch["embeddings" if cfg.input_mode == "embeddings"
+                 else "tokens"]
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -150,15 +177,19 @@ def _logits(cfg: ModelConfig, model: LM, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, model: LM, batch: dict
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """→ (logits (B, S, V) float32, MoE auxiliary loss: 0 without
-    experts).  ``batch["tokens"]`` (B, S) ints."""
+    """→ (logits (B, S, V) float32, the layers' summed MoE auxiliary loss,
+    float32: 0 without experts).  ``batch["tokens"]`` (B, S) ints, or
+    ``batch["embeddings"]`` (B, S, D) for ``input_mode="embeddings"``."""
     _check_supported(cfg)
-    x = _embed(cfg, model, batch["tokens"])
+    x = _embed(cfg, model, _batch_inputs(cfg, batch))
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x = _layer(cfg, layer, x, positions)
-    return _logits(cfg, model, x), torch.zeros((), device=x.device)
+        x, a = _layer(cfg, layer, x, positions)
+        if a is not None:
+            aux = aux + a
+    return _logits(cfg, model, x), aux
 
 
 # ======================================================================
@@ -168,16 +199,17 @@ def prefill(cfg: ModelConfig, model: LM, batch: dict, max_len: int, *,
             last_only: bool = False) -> tuple[torch.Tensor, dict]:
     """Run the prompt through the model: (logits (B, S, V) float32, decode
     cache positioned after the prompt).  ``max_len`` sizes the KV buffers;
-    ``last_only`` keeps only the final position's logits (B, 1, V)."""
+    ``last_only`` keeps only the final position's logits (B, 1, V).
+    ``batch`` as :func:`forward` takes it."""
     _check_supported(cfg)
-    x = _embed(cfg, model, batch["tokens"])
+    x = _embed(cfg, model, _batch_inputs(cfg, batch))
     b, s = x.shape[:2]
     if max_len < s:
         raise ValueError(f"max_len={max_len} below the prompt length {s}")
     positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)
     for i, layer in enumerate(model.layers):
-        x, (k, v) = _layer(cfg, layer, x, positions, return_kv=True)
+        x, _, (k, v) = _layer(cfg, layer, x, positions, return_kv=True)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     if last_only:
@@ -201,9 +233,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, inputs,
                 pos: int) -> tuple[torch.Tensor, dict]:
-    """One-token decode.  ``inputs`` (B,) tokens; ``pos`` the position the
-    new KV is written at.  Returns (logits (B, V) float32, the cache),
-    which is updated in place."""
+    """One-token decode.  ``inputs`` (B,) tokens, or (B, D) embeddings
+    for ``input_mode="embeddings"``; ``pos`` the position the new KV is
+    written at.  Returns (logits (B, V) float32, the cache), which is
+    updated in place."""
     _check_supported(cfg)
     pos = int(pos)
     if not 0 <= pos < cache["k"].shape[2]:
@@ -218,7 +251,7 @@ def decode_step(cfg: ModelConfig, model: LM, cache: dict, inputs,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             qk_norm=cfg.qk_norm)
         x = x + h * cfg.residual_scale
-        x = x + layer.mlp(layer.ln2(x)) * cfg.residual_scale
+        x = x + _ffn(cfg, layer, x)[0] * cfg.residual_scale
     return _logits(cfg, model, x)[:, 0], cache
 
 

@@ -54,9 +54,17 @@ class ServeEngine:
         The whole batch prefills at the bucketed longest prompt length
         (left-padded) and decodes in lockstep from that position; each
         step's tokens come to the host once.  Returns each prompt followed
-        by its ``max_new_tokens`` new tokens.
+        by its ``max_new_tokens`` new tokens.  A model with embedding
+        inputs (``input_mode="embeddings"``) has no tokens to feed back,
+        so it raises ``ValueError``: drive it through
+        ``transformer.prefill`` and ``decode_step``.
         """
         cfg = self.cfg
+        if cfg.input_mode != "tokens":
+            raise ValueError(
+                f"{cfg.name}: generate feeds tokens back, but the model "
+                f"takes input_mode={cfg.input_mode!r}; call "
+                f"transformer.prefill and decode_step with embeddings")
         b = len(prompts)
         lens = np.array([len(p) for p in prompts])
         s = _bucket(int(lens.max()))

@@ -2,8 +2,10 @@
 own weights carried across by ``convert.params_from_jax`` and inputs made
 with numpy from a seed.
 
-Two dtypes per architecture (granite-3-2b and starcoder2-3b, reduced: the
-swiglu and the gelu MLP):
+Two dtypes per architecture (reduced: granite-3-2b and starcoder2-3b, the
+swiglu and the gelu MLP; qwen3-moe-30b-a3b, mixture-of-experts layers
+with ``qk_norm`` and ``rope_theta`` 1e6; musicgen-large, embedding
+inputs):
 
 * float32 (``dataclasses.replace(cfg, dtype="float32")``): the same
   float32 arithmetic in another summation order; ``atol=rtol=1e-5`` on
@@ -45,8 +47,14 @@ from repro_torch.serve.engine import ServeEngine
 CPU = "cpu"
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+DTYPES = ("float32", "bfloat16")
+#: The dense token-input models (those with an ``mlp``).
 CASES = [(arch, dtype) for arch in ("granite-3-2b", "starcoder2-3b")
-         for dtype in ("float32", "bfloat16")]
+         for dtype in DTYPES]
+#: Every model the port runs: the dense ones, MoE and embedding inputs.
+MODEL_CASES = CASES + [(arch, dtype) for arch in ("qwen3-moe-30b-a3b",
+                                                  "musicgen-large")
+                       for dtype in DTYPES]
 
 
 def _cfg(arch, dtype):
@@ -104,19 +112,24 @@ def test_param_counts_equal_reference(arch, reduced):
     assert cfg.active_param_count() == rcfg.active_param_count()
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "starcoder2-3b",
+                                  "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b",
+                                  "musicgen-large"])
 def test_model_holds_param_count_plus_norm_scales(arch):
     """``param_count`` (the reference's arithmetic) leaves out the norm
-    scales; the module holds exactly those on top."""
+    scales (two per layer, the final one, and with ``qk_norm`` a q and a
+    k norm of the head dim per layer); the module holds exactly those on
+    top."""
     cfg = ARCHS[arch].reduced()
     model = T.LM(cfg, device=CPU)
     norms = (2 * cfg.num_layers + 1) * cfg.d_model
+    if cfg.qk_norm:
+        norms += 2 * cfg.num_layers * cfg.resolved_head_dim
     assert sum(p.numel() for p in model.parameters()) == \
         cfg.param_count() + norms
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "xlstm-350m",
-                                  "zamba2-7b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="A.13"):
         T.LM(ARCHS[arch].reduced(), device=CPU)
@@ -125,7 +138,7 @@ def test_unported_families_raise(arch):
 # ----------------------------------------------------------------------
 # Layers, with the reference's weights.
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("arch,dtype", CASES)
+@pytest.mark.parametrize("arch,dtype", MODEL_CASES)
 def test_rmsnorm(arch, dtype):
     cfg, _, params, model = _world(arch, dtype)
     xt, xj = _x(cfg, (2, 5, cfg.d_model))
@@ -133,7 +146,7 @@ def test_rmsnorm(arch, dtype):
            rlayers.rmsnorm(_layer(params, 1)["ln2"], xj), dtype)
 
 
-@pytest.mark.parametrize("arch,dtype", CASES)
+@pytest.mark.parametrize("arch,dtype", MODEL_CASES)
 def test_rope(arch, dtype):
     cfg = _cfg(arch, dtype)
     hd = cfg.resolved_head_dim
@@ -153,7 +166,7 @@ def test_mlp(arch, dtype):
            rlayers.mlp(_layer(params, 0)["mlp"], xj, cfg.mlp_type), dtype)
 
 
-@pytest.mark.parametrize("arch,dtype", CASES)
+@pytest.mark.parametrize("arch,dtype", MODEL_CASES)
 def test_embed_and_unembed(arch, dtype):
     cfg, _, params, model = _world(arch, dtype)
     tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 7))
@@ -168,7 +181,7 @@ def test_embed_and_unembed(arch, dtype):
     _close(got, want, dtype)
 
 
-@pytest.mark.parametrize("arch,dtype", CASES)
+@pytest.mark.parametrize("arch,dtype", MODEL_CASES)
 def test_attention_block(arch, dtype):
     cfg, _, params, model = _world(arch, dtype)
     xt, xj = _x(cfg, (2, 11, cfg.d_model), seed=4)
@@ -184,7 +197,7 @@ def test_attention_block(arch, dtype):
         _close(a, b, dtype)
 
 
-@pytest.mark.parametrize("arch,dtype", CASES)
+@pytest.mark.parametrize("arch,dtype", MODEL_CASES)
 def test_attention_decode(arch, dtype):
     cfg, _, params, model = _world(arch, dtype)
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -231,37 +244,71 @@ def _tokens(cfg, b=2, s=12, seed=1):
         0, cfg.vocab_size, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch,dtype", CASES)
+def _inputs(cfg, b=2, s=12, seed=1):
+    """The same model inputs for both: (port's, reference's) tokens (B, S)
+    or, for ``input_mode="embeddings"``, float32 embeddings (B, S, D)
+    (or (B, D) for ``s=None``, a decode step's)."""
+    if cfg.input_mode == "embeddings":
+        shape = (b, cfg.d_model) if s is None else (b, s, cfg.d_model)
+        x = np.random.default_rng(seed).normal(size=shape).astype(
+            np.float32)
+    else:
+        x = _tokens(cfg, b, s, seed)
+    return torch.from_numpy(x), jnp.asarray(x)
+
+
+def _batch(cfg, x):
+    return {"embeddings" if cfg.input_mode == "embeddings" else "tokens": x}
+
+
+@pytest.mark.parametrize("arch,dtype", MODEL_CASES)
 def test_forward(arch, dtype):
+    """Logits, and the MoE auxiliary loss summed over the layers (0
+    without experts)."""
     cfg, rcfg, params, model = _world(arch, dtype)
-    toks = _tokens(cfg)
-    got, aux = T.forward(cfg, model, {"tokens": torch.from_numpy(toks)})
-    want, _ = RT.forward(rcfg, params, {"tokens": jnp.asarray(toks)})
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    xt, xj = _inputs(cfg)
+    got, aux = T.forward(cfg, model, _batch(cfg, xt))
+    want, want_aux = RT.forward(rcfg, params, _batch(cfg, xj))
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    assert (float(aux) > 0) == cfg.is_moe
     _close(got, want, dtype)
+    _close(aux, want_aux, dtype)
 
 
 @pytest.mark.parametrize("last_only", [False, True])
-@pytest.mark.parametrize("arch,dtype", CASES)
+@pytest.mark.parametrize("arch,dtype", MODEL_CASES)
 def test_prefill_then_decode(arch, dtype, last_only):
     cfg, rcfg, params, model = _world(arch, dtype)
-    toks = _tokens(cfg)
-    got, cache = T.prefill(cfg, model, {"tokens": torch.from_numpy(toks)},
-                           max_len=16, last_only=last_only)
-    want, wcache = RT.prefill(rcfg, params, {"tokens": jnp.asarray(toks)},
-                              max_len=16, last_only=last_only)
+    xt, xj = _inputs(cfg)
+    got, cache = T.prefill(cfg, model, _batch(cfg, xt), max_len=16,
+                           last_only=last_only)
+    want, wcache = RT.prefill(rcfg, params, _batch(cfg, xj), max_len=16,
+                              last_only=last_only)
     assert tuple(got.shape) == want.shape
     _close(got, want, dtype)
     for key in ("k", "v"):
         assert tuple(cache[key].shape) == wcache[key].shape
         _close(cache[key], wcache[key], dtype)
-    nxt = np.argmax(_np(want[:, -1]), -1).astype(np.int32)
-    got, cache = T.decode_step(cfg, model, cache, torch.from_numpy(nxt), 12)
-    want, wcache = RT.decode_step(rcfg, params, wcache, jnp.asarray(nxt),
-                                  jnp.int32(12))
+    if cfg.input_mode == "embeddings":
+        nt, nj = _inputs(cfg, s=None, seed=2)
+    else:
+        nxt = np.argmax(_np(want[:, -1]), -1).astype(np.int32)
+        nt, nj = torch.from_numpy(nxt), jnp.asarray(nxt)
+    got, cache = T.decode_step(cfg, model, cache, nt, 12)
+    want, wcache = RT.decode_step(rcfg, params, wcache, nj, jnp.int32(12))
     _close(got, want, dtype)
     for key in ("k", "v"):
         _close(cache[key], wcache[key], dtype)
+
+
+def test_embedding_inputs_skip_the_table_and_its_scale():
+    """musicgen's first hidden state is its embeddings in the model
+    dtype: neither ``embed_scale`` nor the token table touches them."""
+    cfg = dataclasses.replace(ARCHS["musicgen-large"].reduced(),
+                              embed_scale=3.0)
+    model = T.LM(cfg, device=CPU)
+    xt, _ = _inputs(cfg)
+    assert torch.equal(T._embed(cfg, model, xt), xt.to(torch.bfloat16))
 
 
 def test_init_params_is_seeded_and_shaped_as_reference():
@@ -286,7 +333,8 @@ def test_init_params_is_seeded_and_shaped_as_reference():
 PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8], list(range(10, 27))]
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "starcoder2-3b",
+                                  "qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"])
 def test_generate_greedy_equals_reference(arch):
     cfg, rcfg, params, model = _world(arch, "float32")
     got = ServeEngine(cfg, model, max_len=64, device=CPU).generate(
@@ -312,6 +360,15 @@ def test_generation_runs_and_is_deterministic():
     s2 = eng.generate(prompts, max_new_tokens=4, temperature=1.0, seed=3)
     assert s1 == s2 and [len(o) for o in s1] == [7, 9]
     assert all(0 <= t < cfg.vocab_size for o in s1 for t in o)
+
+
+def test_generate_refuses_embedding_inputs():
+    """musicgen takes embeddings, so there is no token to feed back; the
+    reference's ``generate`` fails there with a ``KeyError``."""
+    cfg, _, _, model = _world("musicgen-large", "float32")
+    eng = ServeEngine(cfg, model, max_len=64, device=CPU)
+    with pytest.raises(ValueError, match="embeddings"):
+        eng.generate(PROMPTS, max_new_tokens=2)
 
 
 def test_serve_engine_refuses_model_on_other_device():
