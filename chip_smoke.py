@@ -19,13 +19,14 @@ Phases, each printing one JSON line (``"phase": ...``):
    sources just built (each ``extern "C"`` function matched to its
    ``_build.SIGNATURES`` argtypes).
 3. kernels — each kernel against its plain PyTorch version on the card.
-   The flash kernels (``FLASH_TOL``): head dims 16/32/64/128, g 1 and 4,
-   S = T = 77 and 1,000, S = 45 < T = 333, float32 (the CUDA-core
+   The flash kernels (``FLASH_TOL``): head dims 16/32/64/112/128, g 1
+   and 4, S = T = 77 and 1,000, S = 45 < T = 333, float32 (the CUDA-core
    kernel) and bf16 (the tensor-core kernel), and bf16 at the prefill
-   shapes of the three llm phases (granite hd 64, g 4; qwen3 hd 128,
-   g 8; musicgen hd 64, g 1; S = T = 1,024).  The distance kernels: on
-   seeded random tiles with the degenerate cases (zero-length extent, zero
-   relative velocity, tangent roots, disjoint intervals), at 256×256,
+   shapes of the four llm phases (granite hd 64, g 4; qwen3 hd 128, g 8;
+   musicgen hd 64, g 1; zamba2-7b hd 112, g 1; S = T = 1,024).  The
+   distance kernels: on seeded random tiles with the degenerate cases
+   (zero-length extent, zero relative velocity, tangent roots, disjoint
+   intervals), at 256×256,
    64×32, 40×24 and 32×320 tiles (the row-loop kernels' register and
    recompute slots), with ample and overflowing capacity; the compact
    kernels' blocks (``BLOCK_CASES``, chunk sub-tiles and row-loop row
@@ -126,7 +127,21 @@ Phases, each printing one JSON line (``"phase": ...``):
    embeddings (8 × 1,024) and 32 ``decode_step`` calls on seeded (8,
    2,048) embeddings, twice (equal logits, 48 flash launches per
    prefill, none per step), its last prefill logits within
-   ``LLM_LOGIT_ATOL`` of the plain attention's with equal argmax.
+   ``LLM_LOGIT_ATOL`` of the plain attention's with equal argmax.  Then
+   phase llm_hybrid: zamba2-7b at full width and depth (81 Mamba2
+   layers, d_model 3,584, ssm_state 64, one shared attention + MLP block
+   after each of its 13 groups of 6, 32 heads of 112, bf16, seeded random
+   weights) through ``ServeEngine.generate`` on the same prompts, twice
+   (equal tokens, 13 flash launches per prefill, none per step); every
+   shared-attention flash call held to ``FLASH_TOL`` on its own q, k and
+   v; the last prefill logits' mean |Δ| from the plain attention's within
+   ``HYBRID_SPREAD_FACTOR`` of a control's (the plain version with 1 % of
+   its outputs moved one bf16 step: 81 layers carry any such step to the
+   logits in full); a prefill and a decode step under
+   ``SyncSentinel``: no ATen sync from ``models/ssm.py``.  Then phase
+   llm_xlstm: xlstm-350m (24 layers: 3 groups of 7 mLSTM + 1 sLSTM, bf16)
+   through ``generate`` twice (equal tokens, no kernel launch), its
+   rates, and no ATen sync from ``models/xlstm.py`` or ``models/ssm.py``.
 9. timing  — each kernel's time on the largest dispatch of the path its
    launches are counted on (CUDA graph of repeated wrapper calls, so host
    overhead is excluded), its plain version's time, and its bound on this
@@ -135,7 +150,8 @@ Phases, each printing one JSON line (``"phase": ...``):
    the llm phase's prefill shape, beside ``scaled_dot_product_attention``
    (``library_ms``, timed here only), the float32 flash kernel at the
    same shape in float32 (phase timing_flash_f32), and the bf16 flash
-   kernel at qwen3's prefill shape (phase timing_flash_moe).
+   kernel at qwen3's prefill shape (phase timing_flash_moe) and at
+   zamba2-7b's (hd 112, g 1; phase timing_flash_hybrid).
 
 Every ``backend="kernel"`` or ``"shard"`` run sets the launch counters
 to 0 just before it and reads them just after (``kernel_path``,
@@ -196,6 +212,20 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5, 0.0),
 #: about 2 here.  0.25 is an eighth of that; a wrong kernel (a wrong mask,
 #: head or scale) moves them by the logits' own size.
 LLM_LOGIT_ATOL = 0.25
+#: zamba2-7b's 81 random-weight Mamba2 layers carry any difference in an
+#: attention output to the last logits in full (measured on an H100 80GB
+#: HBM3 at 700 W, PERF.md; logits' std 1.2): with the flash kernel, with
+#: the kernel's bf16 rounding emulated in plain torch, and with the plain
+#: version's outputs moved by one bf16 step at a seeded 1 % of them
+#: (``one_step_flash``), the logits moved from the plain attention's by a
+#: mean |Δ| of 0.305, 0.305 and 0.300-0.316 (max 2.5-2.9; argmax equal
+#: on 2-4 of 8), against 0.015-0.019 at 12 layers.  So ``LLM_LOGIT_ATOL``
+#: and argmax 8/8 cannot hold there; phase llm_hybrid instead runs that
+#: one-step control in the same call and holds the kernel's mean |Δ| to
+#: this factor of the control's.
+#: A wrong kernel (mask, head or scale) decorrelates the logits: a mean
+#: |Δ| of 2σ/√π ≈ 1.35, 4.5× the control's.
+HYBRID_SPREAD_FACTOR = 2.0
 #: ``scaled_dot_product_attention`` (timed as the flash kernel's
 #: yardstick) against the plain version: a sanity bound that it computes
 #: the same function on the same layout.
@@ -611,17 +641,19 @@ def flash_close(a, b, v, g: int, dtype) -> float:
 
 #: The llm phases' prefill shapes for the flash kernel (8 prompts in the
 #: 1024 bucket), as (BKV, g, S = T, hd): granite-3-2b (phase llm),
-#: qwen3-moe-30b-a3b (llm_moe) and musicgen-large (llm_embed).
+#: qwen3-moe-30b-a3b (llm_moe), musicgen-large (llm_embed) and
+#: zamba2-7b's shared attention block (llm_hybrid).
 SERVE_FLASH = (64, 4, 1024, 64)
 MOE_FLASH = (32, 8, 1024, 128)
 EMBED_FLASH = (256, 1, 1024, 64)
+HYBRID_FLASH = (256, 1, 1024, 112)
 
 
 def flash_checks(dev) -> dict:
     """The flash kernel against its plain version on seeded normal
     inputs: every head dim, g 1 and 4, S = T ragged, S < T windowed,
     float32 (the CUDA-core kernel) and bf16 (the tensor-core kernel); and
-    bf16 at the three llm phases' prefill shapes."""
+    bf16 at the four llm phases' prefill shapes."""
     from repro_torch.kernels import flashattn as fa
     gen = torch.Generator(device=dev).manual_seed(2026)
     err = {str(dt): 0.0 for dt in FLASH_TOL}
@@ -643,7 +675,8 @@ def flash_checks(dev) -> dict:
                 for s, t in ((77, 77), (1000, 1000), (45, 333)):
                     case(dtype, 2, g, s, t, hd)
                     cases += 1
-    for bkv, g, s, hd in (SERVE_FLASH, MOE_FLASH, EMBED_FLASH):
+    for bkv, g, s, hd in (SERVE_FLASH, MOE_FLASH, EMBED_FLASH,
+                          HYBRID_FLASH):
         case(torch.bfloat16, bkv, g, s, s, hd)
         cases += 1
     torch.cuda.synchronize()
@@ -1903,18 +1936,22 @@ def flash_shape(cfg, b: int, s: int) -> dict:
                 dtype=T._dtype(cfg))
 
 
-def serve_runs(cfg, model, dev):
+def serve_runs(cfg, model, dev, flash=None, profile_prefill=True):
     """``ServeEngine.generate`` on the llm phases' prompts with
     ``LLM_NEW_TOKENS`` new tokens, twice: equal outputs, every new token
-    below the vocabulary size, and ``flashattn`` launched once per layer
-    of the prefill and never in decode.  Then one prefill and the decode
-    steps on their own, each timed and counted on its own, and one more
-    of each under ``torch.profiler``.  Returns (the phase line's fields,
-    the prompts' token batch, the prefill's last logits)."""
+    below the vocabulary size, and ``flashattn`` launched ``flash`` times
+    in the prefill (default: once per layer; 0 launches nothing) and
+    never in decode.  Then one prefill and the decode steps on their own,
+    each timed and counted on its own, and one more decode step (and,
+    with ``profile_prefill``, prefill) under ``torch.profiler``.  Returns
+    (the phase line's fields, the prompts' token batch, the prefill's
+    last logits)."""
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine
     lens, prompts, s = llm_prompts(cfg.vocab_size)
-    b, n_new, layers = len(prompts), LLM_NEW_TOKENS, cfg.num_layers
+    b, n_new = len(prompts), LLM_NEW_TOKENS
+    layers = cfg.num_layers if flash is None else flash
+    want = {"flashattn": layers} if layers else {}
     eng = engine.ServeEngine(cfg, model, max_len=s + n_new, device=dev)
     walls, outs = [], []
     for _ in range(2):
@@ -1925,9 +1962,9 @@ def serve_runs(cfg, model, dev):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         counts = {n: c for n, c in launches().items() if c}
-        check(counts == {"flashattn": layers},
-              f"{cfg.name} generate launched {counts}; one flashattn per "
-              f"layer of the prefill and none in decode belong to it")
+        check(counts == want,
+              f"{cfg.name} generate launched {counts}; {want} in the "
+              f"prefill and none in decode belong to it")
     check(outs[0] == outs[1], f"{cfg.name} generate is not deterministic")
     for p, o in zip(prompts, outs[0]):
         check(o[:len(p)] == p and len(o) == len(p) + n_new,
@@ -1967,14 +2004,15 @@ def serve_runs(cfg, model, dev):
         _, step_prof = profile_line(lambda: T.decode_step(
             cfg, model, cache, nxt, s + n_new - 1))
         del cache
-        _, pre_prof = profile_line(lambda: T.prefill(
-            cfg, model, batch, max_len=s, last_only=True))
+        pre_prof = "not profiled" if not profile_prefill else profile_line(
+            lambda: T.prefill(cfg, model, batch, max_len=s,
+                              last_only=True))[1]
     return {"prompts": b, "prompt_tokens": [int(n) for n in lens],
             "bucket": s, "new_tokens": n_new, "generate_wall_s": walls,
             "prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
             "decode_s": decode_s, "decode_tokens_per_s": b * n_new / decode_s,
             "profile": {"decode_step": step_prof, "prefill": pre_prof},
-            "launches_generate": {"flashattn": layers},
+            "launches_generate": want,
             "launches_per_prefill": prefill_launches,
             "launches_per_decode_step": 0}, batch, last
 
@@ -2012,11 +2050,29 @@ def patched(owner, name: str, value):
         setattr(owner, name, old)
 
 
+def uncounted_params(cfg) -> int:
+    """The parameters ``param_count()`` (the reference's arithmetic)
+    leaves out: the final norm scale and the layers' (two per attention
+    layer, with ``qk_norm`` also a q and a k norm of the head dim; one per
+    Mamba2, mLSTM and sLSTM layer; zamba's one shared attention layer),
+    and the xLSTM forget biases (H per mLSTM layer, D per sLSTM layer)."""
+    from repro_torch.models import transformer as T
+    d = cfg.d_model
+    if cfg.block_pattern == "zamba":
+        return (cfg.num_layers + 2 + 1) * d
+    if cfg.block_pattern == "xlstm":
+        g, m_per, _ = T._xlstm_group_sizes(cfg)
+        return (cfg.num_layers + 1) * d + g * m_per * cfg.num_heads + g * d
+    norms = (2 * cfg.num_layers + 1) * d
+    if cfg.qk_norm:
+        norms += 2 * cfg.num_layers * cfg.resolved_head_dim
+    return norms
+
+
 def make_model(cfg, dev):
     """Seeded random weights of ``cfg`` made on the card: (model, init
-    s), the parameter count checked against ``param_count()`` plus the
-    norm scales (two per layer, the final one, and with ``qk_norm`` a q
-    and a k norm of the head dim per layer)."""
+    s), the parameter count checked against ``param_count()`` plus
+    ``uncounted_params``."""
     from repro_torch.models import transformer as T
     t0 = time.perf_counter()
     model = T.init_params(
@@ -2025,12 +2081,11 @@ def make_model(cfg, dev):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    norms = (2 * cfg.num_layers + 1) * cfg.d_model
-    if cfg.qk_norm:
-        norms += 2 * cfg.num_layers * cfg.resolved_head_dim
-    check(n_params - norms == cfg.param_count(),
-          f"{cfg.name}: {n_params} parameters, {norms} of them norm "
-          f"scales, against param_count() {cfg.param_count()}")
+    extra = uncounted_params(cfg)
+    check(n_params - extra == cfg.param_count(),
+          f"{cfg.name}: {n_params} parameters, {extra} of them norm "
+          f"scales or forget biases, against param_count() "
+          f"{cfg.param_count()}")
     return model, init_s
 
 
@@ -2074,7 +2129,6 @@ def llm_moe_path(dev, card):
     run and the prefill's flash-kernel shape."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import flashattn as fa
-    from repro_torch.lint.sentinel import SyncSentinel
     from repro_torch.models import attention, moe
     from repro_torch.models import transformer as T
     cfg = ARCHS[MOE_ARCH]
@@ -2111,19 +2165,10 @@ def llm_moe_path(dev, card):
         del routes, plain_routes, checked, plain
 
         # Host syncs of the prefill and one decode step.
-        torch.cuda.synchronize()
-        with SyncSentinel() as sen:
-            lg, cache = T.prefill(cfg, model, batch, max_len=s + 1,
-                                  last_only=True)
-            T.decode_step(cfg, model, cache, lg[:, -1].argmax(-1), s)
-        torch.cuda.synchronize()
-        del cache
-        rep = sen.report()
-        sites = aten_sites(rep)
-        moe_syncs = sum(x["count"] for x in sites
-                        if x["site"].endswith("models/moe.py"))
+        sentinel, moe_syncs = sentinel_syncs(cfg, model, batch, s,
+                                             ("models/moe.py",))
         check(moe_syncs == 0, f"models/moe.py made {moe_syncs} host syncs: "
-              f"{sites}")
+              f"{sentinel['aten_sites']}")
     emit({"phase": "llm_moe", "arch": MOE_ARCH, "layers": layers,
           "d_model": cfg.d_model, "experts": cfg.num_experts,
           "experts_per_token": cfg.experts_per_token, "d_ff": cfg.d_ff,
@@ -2140,9 +2185,7 @@ def llm_moe_path(dev, card):
               "logits_max_abs_diff": diff, "argmax_agree": f"{agree}/{b}",
               "route_flips_per_layer": flips,
               "route_flips": sum(flips), "gated": False},
-          "sentinel": {"aten_syncs": rep.aten_syncs, "aten_sites": sites,
-                       "moe_syncs": moe_syncs,
-                       "blocking_reads": rep.blocking_reads},
+          "sentinel": sentinel,
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           "card": card})
     return layers, flash_shape(cfg, b, s)
@@ -2222,6 +2265,154 @@ def llm_embed_path(dev, card):
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           "card": card})
     return layers
+
+
+# ----------------------------------------------------------------------
+# LLM serving: zamba2-7b (Mamba2 + a shared attention block) and
+# xlstm-350m (mLSTM + sLSTM) at full width and depth.
+# ----------------------------------------------------------------------
+HYBRID_ARCH, XLSTM_ARCH = "zamba2-7b", "xlstm-350m"
+
+
+def sentinel_syncs(cfg, model, batch, s: int, modules: tuple):
+    """One prefill and one decode step under ``SyncSentinel``: (the
+    report's fields, the ATen syncs from the source files ``modules``)."""
+    from repro_torch.lint.sentinel import SyncSentinel
+    from repro_torch.models import transformer as T
+    torch.cuda.synchronize()
+    with SyncSentinel() as sen:
+        lg, cache = T.prefill(cfg, model, batch, max_len=s + 1,
+                              last_only=True)
+        T.decode_step(cfg, model, cache, lg[:, -1].argmax(-1), s)
+    torch.cuda.synchronize()
+    del cache
+    rep = sen.report()
+    sites = aten_sites(rep)
+    ours = sum(x["count"] for x in sites
+               if x["site"].endswith(modules))
+    return {"aten_syncs": rep.aten_syncs, "aten_sites": sites,
+            "syncs_from": {"modules": list(modules), "count": ours},
+            "blocking_reads": rep.blocking_reads}, ours
+
+
+def one_step_flash(q, k, v, *, g):
+    """The plain version with a seeded 1 % of its outputs moved one bf16
+    step away from zero (phase llm_hybrid's control)."""
+    from repro_torch.kernels import flashattn as fa
+    out = fa.flashattn_plain(q, k, v, g=g)
+    gen = torch.Generator(device=out.device).manual_seed(q.shape[0])
+    flip = torch.rand(out.shape, generator=gen, device=out.device) < 0.01
+    up = (out.view(torch.int16) + 1).view(out.dtype)
+    return torch.where(flip, up, out)
+
+
+def llm_hybrid_path(dev, card):
+    """``ServeEngine.generate`` on zamba2-7b (81 Mamba2 layers in 13
+    groups of 6 and a tail of 3, one shared attention + MLP block after
+    each group; d_model 3,584, 32 heads of 112, ssm_state 64, bf16,
+    random weights from a seeded generator on the card), run twice: 13
+    flash launches per prefill, none per step.  Every shared-attention
+    flash call held against the plain version on its own inputs; the
+    prefill's last logits against those with the plain attention patched
+    in, within ``HYBRID_SPREAD_FACTOR`` of the spread the one-step control
+    gives; one prefill and one decode step under ``SyncSentinel`` (no
+    ATen sync from ``models/ssm.py``).  Returns the flash launches per
+    prefill and the prefill's flash-kernel shape."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flashattn as fa
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    cfg = ARCHS[HYBRID_ARCH]
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, init_s = make_model(cfg, dev)
+    groups, tail = T._zamba_group_sizes(cfg)
+    runs, batch, last = serve_runs(cfg, model, dev, groups)
+    b, s = runs["prompts"], runs["bucket"]
+    with torch.inference_mode():
+        errs = []
+        with patched(attention, "flashattn", checked_flash(errs)):
+            checked, _ = T.prefill(cfg, model, batch, max_len=s,
+                                   last_only=True)
+        check(len(errs) == groups, f"{len(errs)} shared-attention flash "
+              f"calls, not {groups}")
+        check(torch.equal(checked[:, -1], last),
+              "the checked prefill's logits differ from the prefill's")
+        logits = {}
+        for name, fn in (("plain", fa.flashattn_plain),
+                         ("control", one_step_flash)):
+            with patched(attention, "flashattn", fn):
+                out, _ = T.prefill(cfg, model, batch, max_len=s,
+                                   last_only=True)
+            logits[name] = out[:, -1]
+        plain = logits["plain"]
+
+        def spread(x):
+            d = (x - plain).abs()
+            agree = int((x.argmax(-1) == plain.argmax(-1)).sum())
+            return {"mean_abs_diff": float(d.mean()),
+                    "max_abs_diff": float(d.max()),
+                    "argmax_agree": f"{agree}/{b}"}
+        vs_plain = {"kernel": spread(last),
+                    "control_one_step": spread(logits["control"]),
+                    "logits_std": float(plain.float().std())}
+        del checked, logits, plain
+        sentinel, ssm_syncs = sentinel_syncs(cfg, model, batch, s,
+                                             ("models/ssm.py",))
+    check(ssm_syncs == 0, f"models/ssm.py made {ssm_syncs} host syncs: "
+          f"{sentinel['aten_sites']}")
+    got = vs_plain["kernel"]["mean_abs_diff"]
+    ctrl = vs_plain["control_one_step"]["mean_abs_diff"]
+    check(got <= HYBRID_SPREAD_FACTOR * ctrl,
+          f"{HYBRID_ARCH} prefill logits: kernel vs plain mean |diff| "
+          f"{got} > {HYBRID_SPREAD_FACTOR} × the one-step control's {ctrl}")
+    emit({"phase": "llm_hybrid", "arch": HYBRID_ARCH,
+          "layers": cfg.num_layers, "groups": groups, "tail": tail,
+          "shared_attn_every": cfg.shared_attn_every,
+          "d_model": cfg.d_model, "ssm_state": cfg.ssm_state,
+          "head_dim": cfg.resolved_head_dim, "dtype": cfg.dtype,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "param_count": cfg.param_count(), "init_s": init_s, **runs,
+          "flash_max_abs_err_per_call": errs,
+          "flash_tol": list(FLASH_TOL[torch.bfloat16]),
+          "logits_vs_plain": vs_plain,
+          "spread_factor": HYBRID_SPREAD_FACTOR,
+          "sentinel": sentinel,
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "card": card})
+    return groups, flash_shape(cfg, b, s)
+
+
+def llm_xlstm_path(dev, card):
+    """``ServeEngine.generate`` on xlstm-350m (24 layers: 3 groups of 7
+    mLSTM and 1 sLSTM, d_model 1,024, 4 heads, bf16, seeded random
+    weights made on the card), run twice; no kernel launches (the
+    reference's xLSTM has no Pallas kernel); prefill and decode rates;
+    one prefill and one decode step under ``SyncSentinel`` (no ATen sync
+    from ``models/xlstm.py`` or the ``models/ssm.py`` scan it runs on)."""
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS[XLSTM_ARCH]
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, init_s = make_model(cfg, dev)
+    # The prefill's sLSTM steps (3 layers × 1,024 tokens, ~20 launches
+    # each) would swamp the profiler's event list: the decode step only.
+    runs, batch, _ = serve_runs(cfg, model, dev, 0, profile_prefill=False)
+    with torch.inference_mode():
+        sentinel, syncs = sentinel_syncs(
+            cfg, model, batch, runs["bucket"],
+            ("models/xlstm.py", "models/ssm.py"))
+    check(syncs == 0, f"models/xlstm.py or ssm.py made {syncs} host "
+          f"syncs: {sentinel['aten_sites']}")
+    emit({"phase": "llm_xlstm", "arch": XLSTM_ARCH,
+          "layers": cfg.num_layers, "slstm_every": cfg.xlstm_slstm_every,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "dtype": cfg.dtype,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "param_count": cfg.param_count(), "init_s": init_s, **runs,
+          "sentinel": sentinel,
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "card": card})
 
 
 # ----------------------------------------------------------------------
@@ -2490,8 +2681,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     sass = sass_counts(lib)
     if sass is not None:
+        from repro_torch.kernels.flashattn import HEAD_DIMS
         wg = {k: v for k, v in sass.items() if "wgmma" in k}
-        check(len(wg) == 4 and all(v["HGMMA"] and v["UTMALDG"]
+        check(len(wg) == len(HEAD_DIMS) and all(v["HGMMA"] and v["UTMALDG"]
                                    for v in wg.values()),
               f"bf16 flash kernels without HGMMA or UTMALDG: {wg}")
     emit({"phase": "build", "seconds": build_s,
@@ -2530,6 +2722,8 @@ def main() -> int:
     flash_launches, flash_shape = llm_path(dev, card)
     moe_launches, moe_shape = llm_moe_path(dev, card)
     embed_launches = llm_embed_path(dev, card)
+    hybrid_launches, hybrid_shape = llm_hybrid_path(dev, card)
+    llm_xlstm_path(dev, card)
     c3_live = path_counts[("C3", "hierarchical/fused")]
     c3_live_rowloop = path_counts[("C3", "hierarchical/fused_rowloop")]
     counts = {
@@ -2564,13 +2758,21 @@ def main() -> int:
         f"{MOE_ARCH} ServeEngine.generate ({LLM_PROMPTS} prompts, bucket "
         f"{moe_shape['s']}, {LLM_NEW_TOKENS} new tokens)")
     emit({"phase": "timing_flash_moe", **moe_flash, "card": card})
+    # The bf16 flash kernel at zamba2-7b's prefill shape (hd 112, g 1).
+    hybrid_flash = flash_timing(dev, hybrid_shape, hybrid_launches)
+    hybrid_flash["launches_counted_on"] = (
+        f"{HYBRID_ARCH} ServeEngine.generate ({LLM_PROMPTS} prompts, "
+        f"bucket {hybrid_shape['s']}, {LLM_NEW_TOKENS} new tokens)")
+    emit({"phase": "timing_flash_hybrid", **hybrid_flash, "card": card})
     by_name["flashattn"]["launches_other_paths"] = {
         moe_flash["launches_counted_on"]: moe_launches,
-        f"{EMBED_ARCH} prefill (8 × 1,024 embeddings)": embed_launches}
+        f"{EMBED_ARCH} prefill (8 × 1,024 embeddings)": embed_launches,
+        hybrid_flash["launches_counted_on"]: hybrid_launches}
     by_name["flashattn"]["other_shapes"] = [{
-        k: moe_flash[k] for k in ("shape", "launches", "max_abs_err", "ms",
-                                  "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}]
+        k: row[k] for k in ("shape", "launches", "max_abs_err", "ms",
+                            "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")} for row in (moe_flash,
+                                                       hybrid_flash)]
     # The shard paths' launches of each kernel, each path's counters set
     # to 0 just before it and read just after.
     shard_launches = {

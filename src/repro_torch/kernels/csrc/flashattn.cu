@@ -24,12 +24,19 @@
 //   tile's products.  The tensor maps are 3-D over (heads, rows, hd),
 //   encoded on the host per call; rows past S or T are zero-filled by the
 //   hardware.  Each box row is one swizzle span: 32 B at hd 16, 64 B at
-//   32, 128 B at 64, and two 64-column boxes at 128.
+//   32, 128 B at 64, and two 64-column boxes at 128.  hd 112 (224-byte
+//   rows, more than one 128 B span and not a whole number of 64-column
+//   boxes) takes hd 128's shared-memory tiles over a tensor map whose
+//   rows are 112 wide: the second box's columns 112-127 lie past the
+//   tensor's edge, so TMA fills them with zeros (and still counts the
+//   whole box's bytes on the barrier).  Q K^T stops after 112 columns;
+//   P V runs over all 128, whose last 16 stay 0 and are not stored.
 // * S = Q K^T: hd/16 `wgmma.mma_async m64n64k16` with both operands
 //   K-major in shared memory, float32 accumulators in registers.  The
 //   bf16 x bf16 products are exact in float32; only the order of the sum
 //   differs from the plain version.  The 1/sqrt(hd) scale is applied to
-//   the float32 score (exact at hd 16 and 64, within an ulp at 32 and 128).
+//   the float32 score (exact at hd 16 and 64, within an ulp at 32, 112
+//   and 128).
 // * Online softmax in registers: a thread holds 2 rows x 16 keys of the
 //   64 x 64 tile, a row's max takes two shuffles within the quad that
 //   shares it, and each score's exponential is computed once, as exp2f of
@@ -49,6 +56,10 @@
 // * Bound on an H100 SXM (989 TFLOP/s bf16 dense, 700 W): 4 * hd flops per
 //   (query, key) pair that the causal mask keeps, on the tensor cores:
 //   0.0348 ms at granite-3-2b's prefill (BH 256, S = T = 1024, hd 64).
+//   At zamba2-7b's (BH 256, g 1, hd 112) the bytes bound it instead: q,
+//   k, v read and o written once, 235 MB, 0.070 ms at 3.35 TB/s.  hd 112
+//   spends 128/112 of the value product's tensor-core work (the zero
+//   columns).
 // * Left on the table: one warpgroup does everything in turn (no producer
 //   warp, no second consumer warpgroup, no overlap of tile kt + 1's
 //   scores with tile kt's softmax); the g query heads of a GQA group each
@@ -248,11 +259,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory geometry of one 64-row tile of Q, K or V at head dim HD:
 // kBoxes TMA boxes of kBox columns, each box kBlockK rows of kRowBytes
-// (the swizzle span), boxes one after another.
+// (the swizzle span), boxes one after another.  kCols = kBoxes * kBox
+// columns are held: HD itself, except 128 at HD = 112, where the last
+// box runs 16 columns past the tensor's edge (zero-filled by TMA).
 template <int HD>
 struct Tile {
   static constexpr int kBox = HD < 64 ? HD : 64;
-  static constexpr int kBoxes = HD / kBox;
+  static constexpr int kBoxes = (HD + kBox - 1) / kBox;
+  static constexpr int kCols = kBoxes * kBox;
   static constexpr int kRowBytes = kBox * 2;
   static constexpr int kBoxBytes = kBlockK * kRowBytes;
   static constexpr int kBytes = kBoxes * kBoxBytes;
@@ -520,9 +534,9 @@ flashattn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int r0 = warp * 16 + (lane >> 2);    // this thread's rows: r0, r0 + 8
   const int c0 = (lane & 3) * 2;             // its first column in each 8
   const int pos0 = offset + qtile * kBlockQ + r0;  // key position of row r0
-  float oacc[HD / 2];
+  float oacc[G::kCols / 2];                  // columns past HD stay 0
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < G::kCols / 2; ++i) oacc[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   mbar_wait(bar_q, 0);
@@ -585,7 +599,7 @@ flashattn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l0 = fmaf(l0, corr0, ps0);
     l1 = fmaf(l1, corr1, ps1);
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i)
+    for (int i = 0; i < G::kCols / 2; ++i)
       oacc[i] *= ((i >> 1) & 1) ? corr1 : corr0;
 
     // O += P V.
@@ -611,6 +625,8 @@ flashattn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
   const int qi0 = qtile * kBlockQ + r0;
+  // Element i lies in column 8 (i / 4) + ..., so i < HD / 2 stores
+  // exactly the columns below HD.
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const bool hi = (i >> 1) & 1;
@@ -653,7 +669,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A 3-D map over (heads, rows, HD) bf16, contiguous, in boxes of
-// (1, kBlockK, kBox); out-of-range rows read as zeros.
+// (1, kBlockK, kBox); out-of-range rows (and at HD = 112 the columns
+// 112-127 of the second box) read as zeros.
 template <int HD>
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
             int rows) {
@@ -713,6 +730,7 @@ int launch_hd(bool bf16, const void* q, const void* k, const void* v,
     case 16: return launch<16>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
     case 32: return launch<32>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
     case 64: return launch<64>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
+    case 112: return launch<112>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
     case 128: return launch<128>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -41,7 +41,7 @@ from repro_torch.kernels._launch import count_launch, ptr, raise_on, stream
 
 NEG_INF = -1e30
 #: Head dims the CUDA kernel is instantiated for.
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 #: Query rows per CUDA block, and keys per KV tile of the kernel and of
 #: the plain version's online-softmax loop.
 BLOCK_Q = BLOCK_K = 64

@@ -1,5 +1,8 @@
 """The LM of the serving path: layers, attention (prefill through the flash
-kernel), mixture-of-experts layers (``moe``), the decoder (``transformer``:
-the ``attn`` block pattern, dense or MoE, token or embedding inputs) and
-the weight carry-over from the reference (``convert``).  The ``xlstm``
-and ``zamba`` block patterns still raise ``NotImplementedError``."""
+kernel), mixture-of-experts layers (``moe``), the chunked linear RNN and
+Mamba2 (``ssm``), the mLSTM and sLSTM blocks (``xlstm``), the decoder
+(``transformer``: the ``attn`` block pattern, dense or MoE, token or
+embedding inputs; ``zamba``, Mamba2 with a shared attention block;
+``xlstm``) and the weight carry-over from the reference (``convert``).
+KV-head replication (``kv_replication != 1``) still raises
+``NotImplementedError``."""

@@ -29,6 +29,19 @@ class RMSNorm(nn.Module):
         return (out * self.scale.float()).to(x.dtype)
 
 
+def groupnorm(x: torch.Tensor, num_groups: int,
+              eps: float = 1e-6) -> torch.Tensor:
+    """Per-head group norm of the xLSTM cells (no parameters): the last
+    axis cut into ``num_groups`` groups, each normalised in float32 with
+    its mean and population variance, then cast back."""
+    shape = x.shape
+    xf = x.float().reshape(*shape[:-1], num_groups, -1)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return out.reshape(shape).to(x.dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
@@ -110,4 +123,4 @@ class Embedding(nn.Module):
 
 
 __all__ = ["MLP", "MLP_TYPES", "Embedding", "RMSNorm", "apply_rope",
-           "linear", "mlp_param_count", "rope_frequencies"]
+           "groupnorm", "linear", "mlp_param_count", "rope_frequencies"]

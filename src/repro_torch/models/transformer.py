@@ -1,24 +1,36 @@
-"""Decoder-only LM (the reference's ``repro/models/transformer.py``) for
-the ``attn`` block pattern: the dense GQA transformers (granite-3-2b,
-starcoder2-3b, nemotron-4-15b, minicpm-2b, chameleon-34b's backbone), the
-mixture-of-experts ones (qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b; the
-layer's FFN is ``models.moe``), and embedding inputs (musicgen-large,
-``input_mode="embeddings"``: ``batch["embeddings"]`` (B, S, D) in place
-of tokens, (B, D) per decode step, cast to the model dtype without
-``embed_scale``; the token table is built all the same, as the reference
-builds it).
+"""Decoder-only LM (the reference's ``repro/models/transformer.py``) with
+its three block patterns:
 
-The parameters live in an ``nn.Module`` (:class:`LM`) whose layers are an
-``nn.ModuleList`` of per-layer modules (the reference stacks them on a
-leading L axis and scans); ``forward``, ``prefill``, ``init_cache`` and
-``decode_step`` are functions over it with the reference's signatures and
-returns.  The decode cache is the reference's dict of (L, B, max_len,
-KVH, hd) tensors, written in place by ``decode_step``.
+* ``attn`` — the dense GQA transformers (granite-3-2b, starcoder2-3b,
+  nemotron-4-15b, minicpm-2b, chameleon-34b's backbone), the
+  mixture-of-experts ones (qwen3-moe-30b-a3b, phi3.5-moe-42b-a6.6b; the
+  layer's FFN is ``models.moe``), and embedding inputs (musicgen-large,
+  ``input_mode="embeddings"``: ``batch["embeddings"]`` (B, S, D) in place
+  of tokens, (B, D) per decode step, cast to the model dtype without
+  ``embed_scale``; the token table is built all the same, as the reference
+  builds it).
+* ``zamba`` — zamba2-7b: a Mamba2 backbone (``models.ssm``) in groups of
+  ``shared_attn_every`` layers, each group followed by ONE weight-shared
+  attention + MLP block (the reference's simplification: no
+  per-application LoRA), then the leftover Mamba2 layers.
+* ``xlstm`` — xlstm-350m: groups of (k − 1) mLSTM layers and one sLSTM
+  layer (``models.xlstm``; xLSTM[7:1], k = 8).
 
-Not ported yet (ROADMAP A.13): the ``xlstm`` and ``zamba`` block
-patterns and KV-head replication (``kv_replication != 1``, a launcher
-setting), which raise ``NotImplementedError``, and training's loss.
-:func:`param_count` counts every configuration, as the reference does.
+The parameters live in an ``nn.Module`` (:class:`LM`): the reference
+stacks layers on leading axes and scans, the port holds an
+``nn.ModuleList`` per stack (``layers``; ``mamba_groups`` of
+``mamba_tail`` and ``shared_attn``; ``mlstm`` of lists and ``slstm``).
+``forward``, ``prefill``, ``init_cache`` and ``decode_step`` are
+functions over it with the reference's signatures and returns.  The
+decode cache is the reference's dict for the pattern (``k``/``v``;
+``ssm``, ``conv``, ``attn_k``, ``attn_v``, ``ssm_tail``, ``conv_tail``;
+``mlstm`` and the ``slstm`` tuple (h, c, n, m)), of the same shapes,
+written in place by ``decode_step``.
+
+Not ported yet (ROADMAP A.13): KV-head replication (``kv_replication !=
+1``, a launcher setting), which raises ``NotImplementedError``, and
+training's loss.  :func:`param_count` counts every configuration, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -27,14 +39,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm, xlstm
 from repro_torch.models.layers import MLP, Embedding, RMSNorm, mlp_param_count
 from repro_torch.models.moe import MoE, moe_apply
-
-#: Mamba2's head width and causal-conv width (the reference's
-#: ``repro/models/ssm.py``), for :func:`param_count` only.
-MAMBA_HEADDIM = 64
-MAMBA_CONV = 4
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -42,15 +49,25 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    unported = []
-    if cfg.block_pattern != "attn":
-        unported.append(f"block_pattern={cfg.block_pattern!r}")
     if cfg.kv_replication != 1:
-        unported.append("KV-head replication (a launcher setting)")
-    if unported:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported yet (ROADMAP "
-            f"A.13); the port runs the attn block pattern")
+            f"{cfg.name}: KV-head replication (a launcher setting) not "
+            f"ported yet (ROADMAP A.13)")
+
+
+def _xlstm_group_sizes(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(num_groups, mlstm_per_group, group_len) for the xlstm pattern."""
+    k = cfg.xlstm_slstm_every or 8
+    if cfg.num_layers % k:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} xlstm layers are "
+                         f"not a whole number of groups of {k}")
+    return cfg.num_layers // k, k - 1, k
+
+
+def _zamba_group_sizes(cfg: ModelConfig) -> tuple[int, int]:
+    """(num_groups, tail_layers): layers = groups·every + tail."""
+    every = cfg.shared_attn_every or 6
+    return cfg.num_layers // every, cfg.num_layers % every
 
 
 class AttnLayer(nn.Module):
@@ -66,6 +83,34 @@ class AttnLayer(nn.Module):
             self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.num_experts, **kw)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_type, **kw)
+
+
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        kw = dict(dtype=_dtype(cfg), device=device)
+        self.ln = RMSNorm(cfg.d_model, **kw)
+        self.mamba = ssm.Mamba2(cfg.d_model, cfg.ssm_state, **kw)
+
+
+class MLSTMLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        kw = dict(dtype=_dtype(cfg), device=device)
+        self.ln = RMSNorm(cfg.d_model, **kw)
+        self.mlstm = xlstm.MLSTM(cfg.d_model, cfg.num_heads, **kw)
+
+
+class SLSTMLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        kw = dict(dtype=_dtype(cfg), device=device)
+        self.ln = RMSNorm(cfg.d_model, **kw)
+        self.slstm = xlstm.SLSTM(cfg.d_model, cfg.num_heads, **kw)
+
+
+def _layers(layer_cls, cfg: ModelConfig, n: int, device) -> nn.ModuleList:
+    return nn.ModuleList(layer_cls(cfg, device=device) for _ in range(n))
 
 
 class LM(nn.Module):
@@ -86,8 +131,22 @@ class LM(nn.Module):
         self.embed = Embedding(cfg.padded_vocab_size, cfg.d_model, **kw)
         if not cfg.tie_embeddings:
             self.head = Embedding(cfg.padded_vocab_size, cfg.d_model, **kw)
-        self.layers = nn.ModuleList(AttnLayer(cfg, device=meta)
-                                    for _ in range(cfg.num_layers))
+        if cfg.block_pattern == "attn":
+            self.layers = _layers(AttnLayer, cfg, cfg.num_layers, meta)
+        elif cfg.block_pattern == "zamba":
+            g, tail = _zamba_group_sizes(cfg)
+            every = cfg.shared_attn_every or 6
+            self.mamba_groups = nn.ModuleList(
+                _layers(MambaLayer, cfg, every, meta) for _ in range(g))
+            self.mamba_tail = _layers(MambaLayer, cfg, tail, meta)
+            self.shared_attn = AttnLayer(cfg, device=meta)
+        elif cfg.block_pattern == "xlstm":
+            g, m_per, _ = _xlstm_group_sizes(cfg)
+            self.mlstm = nn.ModuleList(
+                _layers(MLSTMLayer, cfg, m_per, meta) for _ in range(g))
+            self.slstm = _layers(SLSTMLayer, cfg, g, meta)
+        else:
+            raise ValueError(f"unknown block_pattern {cfg.block_pattern!r}")
         self.final_ln = RMSNorm(cfg.d_model, **kw)
         self.to_empty(device=dev)
         self.requires_grad_(False)          # serving only: no backward yet
@@ -100,27 +159,47 @@ class LM(nn.Module):
         return self.embed if self.cfg.tie_embeddings else self.head
 
 
+#: Parameters that :func:`init_params` draws otherwise than the general
+#: rule, by the end of their name: (std of a normal draw, or None for a
+#: constant, that constant).  As the reference's ``mamba2_init``,
+#: ``mlstm_init`` and ``slstm_init``.
+_INIT = {
+    ".table": (0.02, None),
+    "mamba.conv": (0.1, None),
+    "mamba.A_log": (None, 0.0),             # A = −exp(A_log) = −1
+    "mamba.dt_bias": (None, 0.0),
+    "mamba.D": (None, 1.0),
+    ".f_bias": (None, 3.0),                 # forget gates start remembering
+}
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda") -> LM:
     """Random weights from ``generator`` (a generator of ``device``),
-    distributed as the reference's ``init_params``: projections, routers
-    and expert weights normal / sqrt(fan_in), embedding tables normal ×
-    0.02, norm scales 1.  The numbers differ from the reference's
-    (``jax.random`` is another generator); ``convert.params_from_jax``
-    carries the reference's own weights."""
+    distributed as the reference's ``init_params``: projections, routers,
+    expert and recurrent weights normal / sqrt(fan_in), embedding tables
+    normal × 0.02, Mamba2's conv normal × 0.1, its ``A_log`` and
+    ``dt_bias`` 0 and ``D`` 1, the xLSTM forget biases 3, norm scales 1.
+    The numbers differ from the reference's (``jax.random`` is another
+    generator); ``convert.params_from_jax`` carries the reference's own
+    weights."""
     model = LM(cfg, device=device)
     for name, p in model.named_parameters():
-        if name.endswith(".table"):
-            std = 0.02
+        rule = next((r for end, r in _INIT.items() if name.endswith(end)),
+                    None)
+        if rule is not None:
+            std, const = rule
         elif name.endswith(".router"):      # (d_model, E)
-            std = p.shape[0] ** -0.5
-        elif p.dim() in (2, 3):             # (d_out, d_in); (E, d_in, d_out)
-            std = p.shape[1] ** -0.5
+            std, const = p.shape[0] ** -0.5, None
+        elif p.dim() in (2, 3):   # (d_out, d_in); (E or H, d_in, d_out)
+            std, const = p.shape[1] ** -0.5, None
         else:
-            p.fill_(1.0)
-            continue
-        p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32) * std)
+            std, const = None, 1.0
+        if std is None:
+            p.fill_(const)
+        else:
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=p.device, dtype=torch.float32) * std)
     return model
 
 
@@ -175,6 +254,76 @@ def _logits(cfg: ModelConfig, model: LM, x: torch.Tensor) -> torch.Tensor:
         ..., :cfg.vocab_size]
 
 
+def _mamba(cfg: ModelConfig, layer: MambaLayer, x: torch.Tensor,
+           cache: dict | None, keys: tuple[str, str], at: tuple):
+    """One Mamba2 layer with its residual over the whole sequence; with a
+    ``cache``, its final ssm and conv states land in ``cache[keys[0]][at]``
+    and ``cache[keys[1]][at]``."""
+    y, st, cv = ssm.mamba2_block(layer.mamba, layer.ln(x),
+                                 d_model=cfg.d_model, n_state=cfg.ssm_state,
+                                 return_conv_state=True)
+    if cache is not None:
+        cache[keys[0]][at] = st
+        cache[keys[1]][at] = cv
+    return x + y
+
+
+def _blocks(cfg: ModelConfig, model: LM, x: torch.Tensor,
+            positions: torch.Tensor, cache: dict | None = None):
+    """Every block over x (B, S, D) → (x, the layers' summed MoE aux loss
+    float32); with a ``cache`` (prefill), each attention block's k and v
+    and each recurrent layer's final state are written into it."""
+    s = x.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kv = cache is not None
+    k_buf, v_buf = _kv_bufs(cfg, cache)
+
+    def attn(layer, x, i):
+        nonlocal aux
+        out = _layer(cfg, layer, x, positions, return_kv=kv)
+        if out[1] is not None:
+            aux = aux + out[1]
+        if kv:
+            k_buf[i, :, :s], v_buf[i, :, :s] = out[2]
+        return out[0]
+
+    if cfg.block_pattern == "attn":
+        for i, layer in enumerate(model.layers):
+            x = attn(layer, x, i)
+    elif cfg.block_pattern == "zamba":
+        for gi, group in enumerate(model.mamba_groups):
+            for li, layer in enumerate(group):
+                x = _mamba(cfg, layer, x, cache, ("ssm", "conv"), (gi, li))
+            x = attn(model.shared_attn, x, gi)
+        for ti, layer in enumerate(model.mamba_tail):
+            x = _mamba(cfg, layer, x, cache, ("ssm_tail", "conv_tail"), ti)
+    else:                                   # xlstm
+        for gi, (group, slayer) in enumerate(zip(model.mlstm, model.slstm)):
+            for li, layer in enumerate(group):
+                y, st = xlstm.mlstm_block(layer.mlstm, layer.ln(x),
+                                          num_heads=cfg.num_heads)
+                x = x + y
+                if kv:
+                    cache["mlstm"][gi, li] = st
+            y, carry = xlstm.slstm_block(slayer.slstm, slayer.ln(x),
+                                         num_heads=cfg.num_heads)
+            x = x + y
+            if kv:
+                for buf, val in zip(cache["slstm"], carry):
+                    buf[gi] = val
+    return x, aux
+
+
+def _kv_bufs(cfg: ModelConfig, cache: dict | None):
+    """The pattern's (k, v) cache buffers, or (None, None) without a
+    cache or an attention block."""
+    if cache is None or cfg.block_pattern == "xlstm":
+        return None, None
+    if cfg.block_pattern == "zamba":
+        return cache["attn_k"], cache["attn_v"]
+    return cache["k"], cache["v"]
+
+
 def forward(cfg: ModelConfig, model: LM, batch: dict
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """→ (logits (B, S, V) float32, the layers' summed MoE auxiliary loss,
@@ -183,12 +332,7 @@ def forward(cfg: ModelConfig, model: LM, batch: dict
     _check_supported(cfg)
     x = _embed(cfg, model, _batch_inputs(cfg, batch))
     b, s = x.shape[:2]
-    positions = _positions(b, s, x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in model.layers:
-        x, a = _layer(cfg, layer, x, positions)
-        if a is not None:
-            aux = aux + a
+    x, aux = _blocks(cfg, model, x, _positions(b, s, x.device))
     return _logits(cfg, model, x), aux
 
 
@@ -198,20 +342,17 @@ def forward(cfg: ModelConfig, model: LM, batch: dict
 def prefill(cfg: ModelConfig, model: LM, batch: dict, max_len: int, *,
             last_only: bool = False) -> tuple[torch.Tensor, dict]:
     """Run the prompt through the model: (logits (B, S, V) float32, decode
-    cache positioned after the prompt).  ``max_len`` sizes the KV buffers;
-    ``last_only`` keeps only the final position's logits (B, 1, V).
-    ``batch`` as :func:`forward` takes it."""
+    cache positioned after the prompt).  ``max_len`` sizes the KV buffers
+    (recurrent states are position-free); ``last_only`` keeps only the
+    final position's logits (B, 1, V).  ``batch`` as :func:`forward`
+    takes it."""
     _check_supported(cfg)
     x = _embed(cfg, model, _batch_inputs(cfg, batch))
     b, s = x.shape[:2]
     if max_len < s:
         raise ValueError(f"max_len={max_len} below the prompt length {s}")
-    positions = _positions(b, s, x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)
-    for i, layer in enumerate(model.layers):
-        x, _, (k, v) = _layer(cfg, layer, x, positions, return_kv=True)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+    x, _ = _blocks(cfg, model, x, _positions(b, s, x.device), cache)
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, model, x), cache
@@ -220,38 +361,112 @@ def prefill(cfg: ModelConfig, model: LM, batch: dict, max_len: int, *,
 # ======================================================================
 # decode (serve) path
 # ======================================================================
+def _stacked(x: torch.Tensor, *lead: int) -> torch.Tensor:
+    """``x`` repeated over leading axes ``lead``, as a tensor of its own."""
+    return x.expand(*lead, *x.shape).contiguous()
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """Zeroed decode cache: k and v (L, B, max_len, KVH, hd)."""
+    """The reference's decode cache for the block pattern, zeroed (the
+    sLSTM stabiliser m at −1e30): ``attn`` k and v (L, B, max_len, KVH,
+    hd); ``zamba`` ssm (g, every, B, H, N, 64) float32, conv (g, every, B,
+    3, d_inner), attn_k and attn_v (g, B, max_len, KVH, hd), and
+    ssm_tail, conv_tail over the tail layers; ``xlstm`` mlstm (g, k − 1,
+    B, H, Dh, Dh + 1) float32 and slstm, the tuple (h, c, n, m) of (g, B,
+    H, Dh) float32."""
     _check_supported(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+    dt = _dtype(cfg)
+    hd = cfg.resolved_head_dim
+    if cfg.block_pattern == "attn":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if cfg.block_pattern == "zamba":
+        g, tail = _zamba_group_sizes(cfg)
+        every = cfg.shared_attn_every or 6
+        s0, c0 = ssm.mamba2_init_state(batch, cfg.d_model, cfg.ssm_state, dt,
+                                       device=dev)
+        kv = (g, batch, max_len, cfg.num_kv_heads, hd)
+        cache = {"ssm": _stacked(s0, g, every),
+                 "conv": _stacked(c0, g, every),
+                 "attn_k": torch.zeros(kv, dtype=dt, device=dev),
+                 "attn_v": torch.zeros(kv, dtype=dt, device=dev)}
+        if tail:
+            cache["ssm_tail"] = _stacked(s0, tail)
+            cache["conv_tail"] = _stacked(c0, tail)
+        return cache
+    g, m_per, _ = _xlstm_group_sizes(cfg)
+    m0 = xlstm.mlstm_init_state(batch, cfg.d_model, cfg.num_heads,
+                                device=dev)
+    return {"mlstm": _stacked(m0, g, m_per),
+            "slstm": tuple(_stacked(x, g) for x in xlstm.slstm_init_state(
+                batch, cfg.d_model, cfg.num_heads, device=dev))}
+
+
+def _attn_decode(cfg: ModelConfig, layer: AttnLayer, x: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor, pos: int) -> torch.Tensor:
+    h, _ = attention.attention_decode(
+        layer.attn, layer.ln1(x), {"k": k, "v": v}, pos,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm)
+    x = x + h * cfg.residual_scale
+    return x + _ffn(cfg, layer, x)[0] * cfg.residual_scale
+
+
+def _mamba_decode(cfg: ModelConfig, layer: MambaLayer, x: torch.Tensor,
+                  cache: dict, keys: tuple[str, str], at) -> torch.Tensor:
+    y, st, cv = ssm.mamba2_decode(layer.mamba, layer.ln(x),
+                                  cache[keys[0]][at], cache[keys[1]][at],
+                                  d_model=cfg.d_model, n_state=cfg.ssm_state)
+    cache[keys[0]][at] = st
+    cache[keys[1]][at] = cv
+    return x + y
 
 
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, inputs,
                 pos: int) -> tuple[torch.Tensor, dict]:
     """One-token decode.  ``inputs`` (B,) tokens, or (B, D) embeddings
     for ``input_mode="embeddings"``; ``pos`` the position the new KV is
-    written at.  Returns (logits (B, V) float32, the cache), which is
-    updated in place."""
+    written at (recurrent states are position-free).  Returns (logits (B,
+    V) float32, the cache), which is updated in place."""
     _check_supported(cfg)
     pos = int(pos)
-    if not 0 <= pos < cache["k"].shape[2]:
+    k_buf, v_buf = _kv_bufs(cfg, cache)
+    if k_buf is not None and not 0 <= pos < k_buf.shape[2]:
         raise ValueError(f"pos={pos} outside the cache's "
-                         f"{cache['k'].shape[2]} positions")
+                         f"{k_buf.shape[2]} positions")
     x = _embed(cfg, model, inputs)[:, None]
-    for i, layer in enumerate(model.layers):
-        h, _ = attention.attention_decode(
-            layer.attn, layer.ln1(x), {"k": cache["k"][i],
-                                       "v": cache["v"][i]}, pos,
-            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm)
-        x = x + h * cfg.residual_scale
-        x = x + _ffn(cfg, layer, x)[0] * cfg.residual_scale
+    if cfg.block_pattern == "attn":
+        for i, layer in enumerate(model.layers):
+            x = _attn_decode(cfg, layer, x, k_buf[i], v_buf[i], pos)
+    elif cfg.block_pattern == "zamba":
+        for gi, group in enumerate(model.mamba_groups):
+            for li, layer in enumerate(group):
+                x = _mamba_decode(cfg, layer, x, cache, ("ssm", "conv"),
+                                  (gi, li))
+            x = _attn_decode(cfg, model.shared_attn, x, k_buf[gi],
+                             v_buf[gi], pos)
+        for ti, layer in enumerate(model.mamba_tail):
+            x = _mamba_decode(cfg, layer, x, cache,
+                              ("ssm_tail", "conv_tail"), ti)
+    else:                                   # xlstm
+        for gi, (group, slayer) in enumerate(zip(model.mlstm, model.slstm)):
+            for li, layer in enumerate(group):
+                y, st = xlstm.mlstm_decode(layer.mlstm, layer.ln(x),
+                                           cache["mlstm"][gi, li],
+                                           num_heads=cfg.num_heads)
+                cache["mlstm"][gi, li] = st
+                x = x + y
+            y, carry = xlstm.slstm_decode(
+                slayer.slstm, slayer.ln(x),
+                tuple(buf[gi] for buf in cache["slstm"]),
+                num_heads=cfg.num_heads)
+            for buf, val in zip(cache["slstm"], carry):
+                buf[gi] = val
+            x = x + y
     return _logits(cfg, model, x)[:, 0], cache
 
 
@@ -271,29 +486,23 @@ def _attn_layer_params(cfg: ModelConfig, active_only: bool) -> int:
     return n
 
 
-def _mamba2_param_count(d_model: int, ssm_state: int) -> int:
-    d_inner = 2 * d_model
-    h = d_inner // MAMBA_HEADDIM
-    return (d_model * (2 * d_inner + 2 * ssm_state + h)
-            + MAMBA_CONV * d_inner + 3 * h + d_inner + d_inner * d_model)
-
-
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The reference's count: norm scales (and the xLSTM forget biases)
+    left out."""
     d = cfg.d_model
     n = cfg.padded_vocab_size * d * (1 if cfg.tie_embeddings else 2)
     if cfg.block_pattern == "attn":
         n += cfg.num_layers * _attn_layer_params(cfg, active_only)
     elif cfg.block_pattern == "xlstm":
-        k = cfg.xlstm_slstm_every or 8
-        g, m_per = cfg.num_layers // k, k - 1
+        g, m_per, _ = _xlstm_group_sizes(cfg)
         dh = d // cfg.num_heads
         mlstm = 5 * d * d + 2 * cfg.num_heads * d
         slstm = 4 * d * d + cfg.num_heads * dh * 4 * dh + d * d
         n += g * (m_per * mlstm + slstm)
     elif cfg.block_pattern == "zamba":
+        g, tail = _zamba_group_sizes(cfg)
         every = cfg.shared_attn_every or 6
-        g, tail = cfg.num_layers // every, cfg.num_layers % every
-        n += (g * every + tail) * _mamba2_param_count(d, cfg.ssm_state)
+        n += (g * every + tail) * ssm.mamba2_param_count(d, cfg.ssm_state)
         n += _attn_layer_params(cfg, active_only)   # shared: counted once
     return n
 

@@ -10,8 +10,9 @@ to the pads before it.
 
 Two departures from the reference, neither changing a greedy token:
 prefill keeps only the last position's logits (``last_only``; the
-reference computes all of them and reads the last), and the KV cache is
-updated in place.  Sampling (``temperature > 0``) draws from a
+reference computes all of them and reads the last), and the decode
+cache (the block pattern's KV buffers and recurrent states, which
+``generate`` passes through untouched) is updated in place.  Sampling (``temperature > 0``) draws from a
 ``torch.Generator`` seeded with ``seed``; it cannot give
 ``jax.random``'s draws.
 """

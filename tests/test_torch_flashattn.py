@@ -10,9 +10,9 @@ bf16, so they differ by at most one bf16 step (2^-7 relative), which is
 below 2^-6 for outputs under 4 in magnitude (averages of standard normal
 values).
 
-The CUDA kernel takes head dims 16, 32, 64 and 128 only, and so does the
-wrapper on every device; where the reference's test shapes use hd = 8,
-these use 16.  The kernel itself is held against the plain version on the
+The CUDA kernel takes head dims 16, 32, 64, 112 (zamba2-7b's) and 128
+only, and so does the wrapper on every device; where the reference's test
+shapes use hd = 8, these use 16.  The kernel itself is held against the plain version on the
 card by ``chip_smoke.py`` (phase kernels).
 
 The bf16 CUDA kernel rounds its probabilities to bf16 before the value
@@ -54,6 +54,8 @@ def _torch(*xs, dtype=torch.float32):
     (1, 4, 32, 32, 16, 16, 8),
     (2, 1, 8, 16, 16, 8, 8),        # windowed: S < T
     (1, 2, 64, 64, 32, 32, 32),
+    (2, 1, 32, 32, 112, 16, 16),    # zamba2-7b's head dim, g 1
+    (1, 2, 16, 32, 112, 8, 16),     # windowed, g 2
 ])
 def test_plain_matches_pallas_and_ref(bkv, g, s, t, hd, bq, bk):
     rng = np.random.default_rng(bkv * 100 + s)
@@ -66,7 +68,7 @@ def test_plain_matches_pallas_and_ref(bkv, g, s, t, hd, bq, bk):
     np.testing.assert_allclose(got, want_ref, atol=F32_ATOL)
 
 
-@pytest.mark.parametrize("g,hd", [(1, 16), (4, 64)])
+@pytest.mark.parametrize("g,hd", [(1, 16), (4, 64), (1, 112)])
 def test_plain_bf16_matches_pallas(g, hd):
     rng = np.random.default_rng(3)
     q, k, v = _inputs(rng, 2, g, 16, 16, hd)
@@ -83,6 +85,8 @@ def test_plain_bf16_matches_pallas(g, hd):
     (1, 3, 7, 29, 32),              # windowed and ragged
     (2, 4, 70, 200, 64),            # several ragged KV blocks
     (1, 1, 65, 130, 128),
+    (2, 1, 77, 77, 112),
+    (1, 1, 45, 333, 112),
 ])
 def test_plain_matches_ref_at_ragged_lengths(bkv, g, s, t, hd):
     """Lengths the Pallas kernel cannot take (it needs block multiples)."""
@@ -179,6 +183,8 @@ def _emulate_bf16_kernel(q, k, v, g):
     (1, 1, 45, 333, 128, False),     # ragged and windowed
     (2, 4, 70, 200, 16, False),
     (1, 1, 100, 1000, 32, False),
+    (2, 1, 64, 64, 112, True),       # zamba2-7b's head dim
+    (1, 1, 77, 77, 112, False),
 ])
 def test_bf16_kernel_rounding_within_stated_tolerance(bkv, g, s, t, hd,
                                                       pallas):

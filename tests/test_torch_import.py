@@ -41,6 +41,7 @@ def test_port_has_modules():
             "repro_torch.configs.granite_3_2b", "repro_torch.models.layers",
             "repro_torch.models.attention", "repro_torch.models.transformer",
             "repro_torch.models.convert", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.models.xlstm",
             "repro_torch.kernels.flashattn",
             "repro_torch.kernels._launch", "repro_torch.serve.engine",
             "repro_torch.serve.batcher", "repro_torch.core.rtree",
