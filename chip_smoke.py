@@ -24,6 +24,11 @@ Phases, each printing one JSON line (``"phase": ...``):
    kernel) and bf16 (the tensor-core kernel), and bf16 at the prefill
    shapes of the four llm phases (granite hd 64, g 4; qwen3 hd 128, g 8;
    musicgen hd 64, g 1; zamba2-7b hd 112, g 1; S = T = 1,024).  The
+   flash backward (``BWD_TOL``) against the plain backward on the kernel
+   forward's o and lse, at the same head dims, g, lengths and dtypes and
+   at granite-3-2b's training shape (BH 256, g 4, S = T = 1,024, hd 64,
+   bf16); the forward's lse against the plain loop's (``LSE_ATOL``); a
+   second backward call bit-identical.  The
    distance kernels: on seeded random tiles with the degenerate cases
    (zero-length extent, zero relative velocity, tangent roots, disjoint
    intervals), at 256×256,
@@ -142,6 +147,22 @@ Phases, each printing one JSON line (``"phase": ...``):
    llm_xlstm: xlstm-350m (24 layers: 3 groups of 7 mLSTM + 1 sLSTM, bf16)
    through ``generate`` twice (equal tokens, no kernel launch), its
    rates, and no ATen sync from ``models/xlstm.py`` or ``models/ssm.py``.
+   Then phase train: granite-3-2b at full width and depth (40 layers,
+   bf16, seeded random weights made on the card) through
+   ``train.step.make_train_step`` (AdamW, ``TRAIN_OPT``, ``remat=True``)
+   on ``TokenPipeline`` batches of 8 × 1,024: first the loss and gradient
+   norm at the fresh weights with the flash kernels and with the plain
+   attention patched into ``FlashAttention`` (``MB_RTOL``); four steps,
+   each timed, its peak memory and its launches (80 flash forwards, 40 of
+   each backward kernel) recorded; the loss falls (each later step's
+   below the first's, and the first batch's after the four updates
+   below its own before them); the fourth step again from the same
+   state (copied to the host and back) at ``microbatches=2`` (loss and
+   gradient norm within ``MB_RTOL``); one step under ``torch.profiler``
+   (device time by kind of kernel) and one under ``SyncSentinel`` (ATen
+   syncs from ``train/`` and ``models/``).  Phase train_checkpoint: the
+   same model cut to 2 layers, two steps, a save, two more; the restored
+   state through the same two steps: master weights equal bit for bit.
 9. timing  — each kernel's time on the largest dispatch of the path its
    launches are counted on (CUDA graph of repeated wrapper calls, so host
    overhead is excluded), its plain version's time, and its bound on this
@@ -151,7 +172,10 @@ Phases, each printing one JSON line (``"phase": ...``):
    (``library_ms``, timed here only), the float32 flash kernel at the
    same shape in float32 (phase timing_flash_f32), and the bf16 flash
    kernel at qwen3's prefill shape (phase timing_flash_moe) and at
-   zamba2-7b's (hd 112, g 1; phase timing_flash_hybrid).
+   zamba2-7b's (hd 112, g 1; phase timing_flash_hybrid); the flash
+   forward also with its lse written (``ms_with_lse``); the flash
+   backward at granite-3-2b's training shape, beside the backward of
+   ``scaled_dot_product_attention`` (its ``library_ms``, CUDA events).
 
 Every ``backend="kernel"`` or ``"shard"`` run sets the launch counters
 to 0 just before it and reads them just after (``kernel_path``,
@@ -175,6 +199,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -205,6 +230,20 @@ B_RTOL, B_ATOL = 1e-4, 1e-3
 #: emulation of the kernel's rounding to the same bound on the CPU.
 FLASH_TOL = {torch.float32: (1e-5, 1e-5, 0.0),
              torch.bfloat16: (2.0 ** -7, 0.0, 2.0 ** -8)}
+#: The flash backward (dq, dk, dv) against its plain version on the card,
+#: per dtype, as (rtol, frac): |a - b| <= rtol * max(|a|, |b|) + frac *
+#: max|b| over the tensor.  Both compute in float32 from the same inputs
+#: (the forward's o and lse included), with sums over up to T keys and g·S
+#: query rows in another order: on the CPU the plain version's float32
+#: result is within 1.1e-6 of max|grad| of a float64 one at these shapes,
+#: so frac = 1e-5 leaves ten times that for two such sums.  bf16: each
+#: side then rounds once to bf16, and values that straddle a rounding
+#: boundary land one bf16 step apart, at most 2^-7 of their magnitude.
+BWD_TOL = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+#: The forward's lse (m + log l, float32) against the plain loop's: the
+#: same float32 terms summed in another order (and, in bf16, scaled after
+#: the product), about 1e-6 of lse's magnitude (under 15 here).
+LSE_ATOL = 1e-4
 #: The llm phase's last-position logits, kernel against plain version:
 #: the two differ only where their float32 attention sums round to bf16
 #: differently (one step, on a few outputs per layer), and 40 layers of
@@ -258,7 +297,7 @@ REPLACES = {
 
 
 def source(name: str) -> str:
-    cu = "flashattn" if name == "flashattn" else "distthresh"
+    cu = "flashattn" if name.startswith("flashattn") else "distthresh"
     return f"src/repro_torch/kernels/csrc/{cu}.cu"
 
 
@@ -685,6 +724,76 @@ def flash_checks(dev) -> dict:
             "tol": {str(k): v for k, v in FLASH_TOL.items()}}
 
 
+#: granite-3-2b's training shape for the flash backward (phase train: 8 ×
+#: 1,024 tokens), as (BKV, g, S = T, hd).
+TRAIN_FLASH = (64, 4, 1024, 64)
+
+
+def bwd_close(a, b, dtype, what: str) -> float:
+    """Max |a - b| of one gradient, after checking ``BWD_TOL``."""
+    rtol, frac = BWD_TOL[dtype]
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    tol = rtol * torch.maximum(a.abs(), b.abs()) + frac * b.abs().max()
+    check(torch.isfinite(a).all().item(), f"flashattn_bwd: non-finite {what}")
+    check((diff <= tol).all().item(),
+          f"flashattn_bwd {dtype} {what}: max |diff| {float(diff.max())}, "
+          f"max |plain| {float(b.abs().max())}")
+    return float(diff.max())
+
+
+def flash_bwd_checks(dev) -> dict:
+    """The flash backward kernels against the plain backward, and the
+    forward's lse against the plain loop's, on seeded normal inputs: every
+    head dim, g 1 and 4, S = T = 77 and 1,000, S = 45 < T = 333, float32
+    and bf16, and bf16 at granite-3-2b's training shape.  Both backwards
+    take the kernel forward's o and lse; a second call must give the same
+    bits."""
+    from repro_torch.kernels import flashattn as fa
+    gen = torch.Generator(device=dev).manual_seed(2027)
+    err = {str(dt): 0.0 for dt in BWD_TOL}
+    lse_err = 0.0
+    cases = 0
+
+    def case(dtype, bkv, g, s, t, hd):
+        nonlocal lse_err
+        q, do = (torch.randn((bkv * g, s, hd), generator=gen, device=dev)
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn((bkv, t, hd), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        o, lse = fa.flashattn_fwd(q, k, v, g=g)
+        _, lse_plain = fa.flashattn_fwd_plain(q, k, v, g=g)
+        e = float((lse - lse_plain).abs().max())
+        check(e <= LSE_ATOL, f"flashattn lse {dtype} hd {hd}: {e}")
+        lse_err = max(lse_err, e)
+        got = fa.flashattn_bwd(q, k, v, o, lse, do, g=g)
+        want = fa.flashattn_bwd_plain(q, k, v, o, lse, do, g=g)
+        for a, b, what, x in zip(got, want, ("dq", "dk", "dv"), (q, k, v)):
+            check(a.dtype == dtype and a.shape == x.shape,
+                  f"flashattn_bwd {what}: dtype or shape")
+            err[str(dtype)] = max(err[str(dtype)],
+                                  bwd_close(a, b, dtype, what))
+        again = fa.flashattn_bwd(q, k, v, o, lse, do, g=g)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flashattn_bwd {dtype} hd {hd} g {g}: a second call "
+              f"differs")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in fa.HEAD_DIMS:
+            for g in (1, 4):
+                for s, t in ((77, 77), (1000, 1000), (45, 333)):
+                    case(dtype, 2, g, s, t, hd)
+                    cases += 1
+    bkv, g, s, hd = TRAIN_FLASH
+    case(torch.bfloat16, bkv, g, s, s, hd)
+    cases += 1
+    torch.cuda.synchronize()
+    return {"cases": cases, "max_abs_err": max(err.values()),
+            "max_abs_err_by_dtype": err, "lse_max_abs_err": lse_err,
+            "lse_atol": LSE_ATOL, "repeat_bit_identical": True,
+            "tol": {str(k): v for k, v in BWD_TOL.items()}}
+
+
 # ----------------------------------------------------------------------
 # Whole-path comparisons.
 # ----------------------------------------------------------------------
@@ -828,10 +937,12 @@ def main_path(dev, card):
     return db, res, wall, counts, dense_res, dense_counts
 
 
-def profiled(fn):
+def profiled(fn, by=None):
     """Run ``fn()`` once under ``torch.profiler`` and synchronize: (wall
     s, device busy s, device events, top device time by kernel / copy
-    name).  Busy is the union of the device intervals."""
+    name; with ``by``, a kernel name → category function, the device time
+    of every category and the top 12 names).  Busy is the union of the
+    device intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -840,24 +951,31 @@ def profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, by_group = [], {}, {}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
         t_start, t_end = ev.time_range.start, ev.time_range.end
         spans.append((t_start, t_end))
         name = ev.name if len(ev.name) < 60 else ev.name[:57] + "..."
-        n, us = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, us + (t_end - t_start))
+        for key, table in ((name, by_name),
+                           (by(ev.name) if by else None, by_group)):
+            if key is not None:
+                n, us = table.get(key, (0, 0.0))
+                table[key] = (n + 1, us + (t_end - t_start))
     check(spans, "the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):           # union of device intervals (us)
         if b > end:
             busy += b - max(a, end)
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    return out, wall, busy * 1e-6, len(spans), {
-        k: {"n": n, "us": us} for k, (n, us) in top}
+    def ranked(table, n=None):
+        return {k: {"n": c, "us": us} for k, (c, us) in sorted(
+            table.items(), key=lambda kv: -kv[1][1])[:n]}
+    top = ranked(by_name, 12 if by else 8)
+    if by:
+        top = {"by_kind": ranked(by_group), "top": top}
+    return out, wall, busy * 1e-6, len(spans), top
 
 
 def profile_main(db, res, card, compaction=None):
@@ -2017,10 +2135,11 @@ def serve_runs(cfg, model, dev, flash=None, profile_prefill=True):
             "launches_per_decode_step": 0}, batch, last
 
 
-def profile_line(fn):
+def profile_line(fn, by=None):
     """``fn()`` once under ``torch.profiler``: its result, and the wall,
-    device busy time and share, device events and top device names."""
-    out, wall, busy, events, top = profiled(fn)
+    device busy time and share, device events and top device names (or,
+    with ``by``, the device time of each category)."""
+    out, wall, busy, events, top = profiled(fn, by)
     return out, {"wall_s": wall, "device_busy_s": busy,
                  "device_busy_share": busy / wall, "device_events": events,
                  "device_us_by_name": top}
@@ -2383,6 +2502,306 @@ def llm_hybrid_path(dev, card):
     return groups, flash_shape(cfg, b, s)
 
 
+# ----------------------------------------------------------------------
+# Training: granite-3-2b at full width and depth takes AdamW steps.
+# ----------------------------------------------------------------------
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "granite-3-2b", 8, 1024, 4
+#: The reference's ``AdamWConfig`` defaults: lr 3e-4 after a linear
+#: warmup of 100 steps, so the four steps run at 3e-6 to 1.2e-5.  Its
+#: ``test_loss_decreases`` runs lr 3e-3 with 5 warmup steps at the
+#: reduced width of 64; at granite's 2,048 Adam's first, sign-like step
+#: of lr · sign(g) moves each output of a layer by about lr · d_in, and
+#: a short warmup to 3e-3, 1e-3 or 3e-4 makes the loss swing or rise
+#: (``chip_train_sweep.py`` runs those settings).
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=100, total_steps=10_000)
+#: Relative tolerances on a train step's loss and gradient norm computed
+#: twice in ways that differ only in bf16 rounding: microbatches=2
+#: against 1 (a GEMM over 4,096 rows may sum in another order than over
+#: 8,192; each half's gradient rounds to bf16 before the float32 sum), and
+#: the flash kernels against the plain attention (the kernel forward
+#: rounds P to bf16).  Either lands a few activations per layer one bf16
+#: step apart, which 40 layers carry to the logits (about 0.05 each, as
+#: the llm phase's kernel-vs-plain logits show); the mean loss over 8,192
+#: tokens averages that to ~1e-4 of its value, and elementwise roundings
+#: of 2^-9 move the global norm far less than 2^-9.
+MB_RTOL = {"loss": 1e-3, "grad_norm": 1e-2}
+#: Kernel launches of one training step with remat: each attention
+#: layer's forward twice (the step's forward and the backward's
+#: recompute) and the three backward kernels once.
+TRAIN_LAUNCHES = {"flashattn": 2, "flashattn_bwd_delta": 1,
+                  "flashattn_bwd_dkdv": 1, "flashattn_bwd_dq": 1}
+
+
+def kernel_group(name: str) -> str:
+    """The train step profile's categories of device work, by kernel
+    name."""
+    low = name.lower()
+    for key, group in (("flashattn_bwd", "flash backward"),
+                       ("flashattn", "flash forward"),
+                       ("multi_tensor_apply", "optimizer (foreach)"),
+                       ("gemm", "GEMMs"), ("cutlass", "GEMMs"),
+                       ("xmma", "GEMMs"), ("cublas", "GEMMs"),
+                       ("nvjet", "GEMMs"),
+                       ("memcpy", "copies"), ("memset", "copies"),
+                       ("logsumexp", "CE (logsumexp, gather)"),
+                       ("gather", "CE (logsumexp, gather)"),
+                       ("scatter", "CE (logsumexp, gather)"),
+                       ("reduce", "reductions"), ("norm", "reductions")):
+        if key in low:
+            return group
+    return "elementwise and other"
+
+
+def train_batches(vocab: int, seq: int = TRAIN_SEQ) -> list:
+    """The phase's ``TokenPipeline`` batches (8 × ``seq``), steps 0 to
+    ``TRAIN_STEPS + 1``."""
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab_size=vocab, seq_len=seq, global_batch=TRAIN_BATCH))
+    return [pipe.global_batch_at(i) for i in range(TRAIN_STEPS + 2)]
+
+
+def timed_step(step, state, batch, dev):
+    """One train step, synchronized: (state, metrics as floats, wall s,
+    the kernels it launched)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: c for n, c in launches().items() if c}
+    return state, {k: float(v) for k, v in m.items()}, wall, counts
+
+
+def train_path(dev, card):
+    """granite-3-2b at full width and depth, bf16, seeded random weights
+    made on the card: ``TRAIN_STEPS`` AdamW steps (``remat=True``) on
+    ``TokenPipeline`` batches of 8 × 1,024, each timed and counted; the
+    loss falls (each later step's below the first's, and the first
+    batch's after the updates below its own before them).  The last of them taken once more from the same state
+    (copied to the host and back) at ``microbatches=2``: loss and
+    grad_norm within ``MB_RTOL``.  One more step under
+    ``torch.profiler`` (device time by kind of kernel), one under
+    ``SyncSentinel`` (the ATen syncs from ``train/`` and ``models/``).
+    Returns the flash kernels' launches counted in the last of the
+    ``TRAIN_STEPS`` steps."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.lint.sentinel import SyncSentinel
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+    free_card()
+    cfg = ARCHS[TRAIN_ARCH]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = step_lib.init_train_state(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params - uncounted_params(cfg) == cfg.param_count(),
+          f"{cfg.name}: {n_params} parameters")
+    batches = train_batches(cfg.vocab_size)
+    want = {n: k * cfg.num_layers for n, k in TRAIN_LAUNCHES.items()}
+    vs_plain = train_vs_plain(cfg, model, batches[0], want)
+    state_gib = sum(t.numel() * t.element_size() for t in
+                    [*model.parameters(), *state["opt"]["m"].values(),
+                     *state["opt"]["v"].values(),
+                     *state["opt"]["master"].values()]) / 2**30
+    ocfg = opt_lib.AdamWConfig(**TRAIN_OPT)
+    step = step_lib.make_train_step(cfg, ocfg, microbatches=1, remat=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps = []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:        # the state before the last step
+            host = {n: t.to("cpu", copy=True) for n, t in
+                    _train_tensors(state).items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, m, wall, counts = timed_step(step, state, batches[i], dev)
+        check(counts == want, f"train step {i} launched {counts}, not "
+              f"{want}")
+        check(all(np.isfinite(v) for v in m.values()),
+              f"train step {i}: non-finite metrics {m}")
+        steps.append({"step": i, "wall_s": wall, "tokens_per_s":
+                      tokens / wall, "peak_memory_gib":
+                      torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "launches": counts, **m})
+    # The loss falls: every later step's batch scores below the first
+    # step's, and the first batch itself scores lower after the updates.
+    losses = [x["loss"] for x in steps]
+    with torch.no_grad():
+        after = float(T.loss_fn(cfg, model, {
+            k: torch.as_tensor(v, device=dev)
+            for k, v in batches[0].items()})[0])
+    check(max(losses[1:]) < losses[0] and after < losses[0],
+          f"train loss did not fall: {losses}, batch 0 after {after}")
+
+    # The last step again, from the same state, at microbatches=2.
+    with torch.no_grad():
+        for n, t in _train_tensors(state).items():
+            t.copy_(host[n])
+    del host
+    step2 = step_lib.make_train_step(cfg, ocfg, microbatches=2, remat=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, m2, wall2, counts2 = timed_step(step2, state,
+                                          batches[TRAIN_STEPS - 1], dev)
+    peak2 = torch.cuda.max_memory_allocated(dev) / 2**30
+    m1 = steps[-1]
+    rel = {k: abs(m2[k] - m1[k]) / abs(m1[k]) for k in MB_RTOL}
+    check(all(rel[k] <= MB_RTOL[k] for k in MB_RTOL),
+          f"microbatches 2 vs 1: relative differences {rel}")
+
+    # One step under the profiler, one under the sync sentinel; their
+    # losses continue the trajectory.
+    (state, m5), prof = profile_line(
+        lambda: step(state, batches[TRAIN_STEPS]), by=kernel_group)
+    torch.cuda.synchronize()
+    with SyncSentinel() as sen:
+        state, m6 = step(state, batches[TRAIN_STEPS + 1])
+    torch.cuda.synchronize()
+    rep = sen.report()
+    later = [float(m5["loss"]), float(m6["loss"])]
+    ce_ms = ce_timing(cfg, model, dev)
+    sites = aten_sites(rep)
+    ours = sum(x["count"] for x in sites if "src/repro_torch/train/" in
+               x["site"] or "src/repro_torch/models/" in x["site"])
+    emit({"phase": "train", "arch": TRAIN_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "parameters":
+          n_params, "param_count": cfg.param_count(), "state_gib":
+          state_gib, "init_s": init_s, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "optimizer": TRAIN_OPT, "remat": True, "steps": steps,
+          "loss_batch0_after": after, "losses_after_microbatches_2":
+          later, "kernel_vs_plain": vs_plain,
+          "microbatches_2": {"wall_s": wall2, "launches": counts2,
+                             "peak_memory_gib": peak2, **m2,
+                             "rel_diff": rel, "rtol": MB_RTOL},
+          "profile": prof, "ce_fwd_bwd_ms": ce_ms,
+          "sentinel": {"aten_syncs": rep.aten_syncs, "aten_sites": sites,
+                       "from_train_and_models": ours,
+                       "blocking_reads": rep.blocking_reads},
+          "card": card})
+    del state, model
+    free_card()
+    train_checkpoint(dev, card)
+    return steps[-1]["launches"]
+
+
+def ce_timing(cfg, model, dev) -> float:
+    """Milliseconds (CUDA events) of one step's cross-entropy alone:
+    ``chunked_cross_entropy`` over seeded (8, 1,024, d_model) activations
+    and labels with the model's output table, forward and the gradients
+    of the activations and the table."""
+    from repro_torch.models.layers import chunked_cross_entropy
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(getattr(torch, cfg.dtype)).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    head = model.output_head()
+
+    def run():
+        loss = chunked_cross_entropy(head, x, labels,
+                                     true_vocab=cfg.vocab_size)
+        return torch.autograd.grad(loss, (x, head.table))
+    return event_ms(run, iters=3)
+
+
+def grads_at(cfg, model, batch, remat: bool = True):
+    """The loss, its float32 global gradient norm and the kernels it
+    launched, for ``batch`` at the model's weights (no update)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt_lib
+    reset_launches()
+    loss, _ = T.loss_fn(cfg, model, {k: torch.as_tensor(v, device=model.device)
+                                     for k, v in batch.items()}, remat=remat)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    norm = float(opt_lib.global_norm(grads))
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in launches().items() if c}
+    return float(loss), norm, counts
+
+
+def train_vs_plain(cfg, model, batch, want) -> dict:
+    """The step's loss and gradient norm at the fresh weights with the
+    flash kernels, and with the plain forward and backward patched into
+    ``FlashAttention``: within ``MB_RTOL`` (the kernel forward rounds P to
+    bf16, the plain one does not)."""
+    from repro_torch.kernels import flashattn as fa
+    loss, norm, counts = grads_at(cfg, model, batch)
+    check(counts == want, f"loss and gradient launched {counts}")
+    with patched(fa, "flashattn_fwd", fa.flashattn_fwd_plain), \
+            patched(fa, "flashattn_bwd", fa.flashattn_bwd_plain):
+        p_loss, p_norm, p_counts = grads_at(cfg, model, batch)
+    check(not p_counts, f"the plain attention launched {p_counts}")
+    rel = {"loss": abs(loss - p_loss) / abs(p_loss),
+           "grad_norm": abs(norm - p_norm) / abs(p_norm)}
+    check(all(rel[k] <= MB_RTOL[k] for k in MB_RTOL),
+          f"train loss and gradient, kernels vs plain: {rel}")
+    return {"loss": loss, "grad_norm": norm, "plain_loss": p_loss,
+            "plain_grad_norm": p_norm, "rel_diff": rel, "rtol": MB_RTOL}
+
+
+def _train_tensors(state: dict) -> dict:
+    """Every tensor a train step updates, by a name of its own."""
+    out = {f"p.{n}": p for n, p in state["params"].named_parameters()}
+    for k in ("m", "v", "master"):
+        out.update({f"{k}.{n}": t for n, t in state["opt"][k].items()})
+    out["count"] = state["opt"]["count"]
+    return out
+
+
+def train_checkpoint(dev, card):
+    """The checkpoint at full width with the depth cut to 2 layers: two
+    steps, a save, two more steps; the saved state restored on the card
+    and run through the same two steps: master weights equal bit for
+    bit."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], num_layers=2)
+    state = step_lib.init_train_state(
+        cfg, generator=torch.Generator(device=dev).manual_seed(1),
+        device=dev)
+    step = step_lib.make_train_step(cfg, opt_lib.AdamWConfig(**TRAIN_OPT))
+    batches = train_batches(cfg.vocab_size)
+    for i in range(2):
+        state, _ = step(state, batches[i])
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(root, 2, state)
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        for i in (2, 3):
+            state, _ = step(state, batches[i])
+        t0 = time.perf_counter()
+        resumed, at, _ = ckpt.restore(root, state, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    check(at == 2, f"restored step {at}")
+    for i in range(at, 4):
+        resumed, _ = step(resumed, batches[i])
+    master, again = state["opt"]["master"], resumed["opt"]["master"]
+    equal = all(torch.equal(master[n], again[n]) for n in master)
+    check(equal, "resumed master weights differ from the uninterrupted "
+          "run's")
+    emit({"phase": "train_checkpoint", "arch": TRAIN_ARCH, "layers":
+          cfg.num_layers, "parameters": sum(
+              p.numel() for p in state["params"].parameters()),
+          "disk_bytes": disk, "save_s": save_s, "restore_s": restore_s,
+          "leaves": len(master) * 4 + 1, "resumed_master_bit_equal": equal,
+          "card": card})
+    del state, resumed
+    free_card()
+
+
 def llm_xlstm_path(dev, card):
     """``ServeEngine.generate`` on xlstm-350m (24 layers: 3 groups of 7
     mLSTM and 1 sLSTM, d_model 1,024, 4 heads, bf16, seeded random
@@ -2640,6 +3059,7 @@ def flash_timing(dev, shape, n_launches, dtype=None):
                      fa.flashattn_plain(q, k, v, g=g).float()).abs().max())
     check(lib_err <= LIBRARY_ATOL, f"SDPA vs plain: {lib_err}")
     ms = graph_ms(lambda: fa.flashattn(q, k, v, g=g))
+    ms_lse = graph_ms(lambda: fa.flashattn_fwd(q, k, v, g=g))
     plain_ms = event_ms(lambda: fa.flashattn_plain(q, k, v, g=g))
     library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         lib_q, lib_k, lib_v, is_causal=True, enable_gqa=True))
@@ -2658,8 +3078,80 @@ def flash_timing(dev, shape, n_launches, dtype=None):
             "shape": {"bh": bh, "bkv": bkv, "s": s, "t": t, "hd": hd,
                       "dtype": str(dtype)},
             "max_abs_err": err, "library_max_abs_err": lib_err, "ms": ms,
+            "ms_with_lse": ms_lse, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
+    """The flash backward at granite-3-2b's training shape
+    (``TRAIN_FLASH``, bf16, seeded normal inputs, the kernel forward's o
+    and lse): the three kernels (one wrapper call), the plain backward,
+    and the backward of ``scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` on the same tensors (the yardstick only; the port
+    never calls it), with the bound of the work."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flashattn as fa
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bkv, g, s, hd = TRAIN_FLASH
+    bh, t, dtype = bkv * g, s, torch.bfloat16
+    q, do = (torch.randn((bh, s, hd), generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((bkv, t, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    o, lse = fa.flashattn_fwd(q, k, v, g=g)
+    got = fa.flashattn_bwd(q, k, v, o, lse, do, g=g)
+    want = fa.flashattn_bwd_plain(q, k, v, o, lse, do, g=g)
+    err = max(bwd_close(a, b, dtype, w)
+              for a, b, w in zip(got, want, ("dq", "dk", "dv")))
+    # SDPA's layout: (batch, heads, S, hd), the kernel's bh = (b·KVH +
+    # kvh)·g + j being head kvh·g + j of batch b; S = T, so its is_causal
+    # mask (aligned to the first key) is the kernel's.
+    n_kv = ARCHS[LLM_ARCH].num_kv_heads
+    lq, lk, lv = (x.detach().view(bkv // n_kv, -1, x.shape[1], hd)
+                  .requires_grad_() for x in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                        enable_gqa=True)
+    ldo = do.view(bkv // n_kv, -1, s, hd)
+
+    def library():
+        return torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
+
+    # SDPA's backward rounds its probabilities and score gradients to
+    # bf16: held to the same function only loosely (a wrong layout misses
+    # by the gradients' own size).
+    lib_err = max(float((a.reshape(b.shape).float() - b.float()).abs().max()
+                        / b.float().abs().max())
+                  for a, b in zip(library(), want))
+    check(lib_err <= LIBRARY_ATOL, f"SDPA backward vs plain: {lib_err}")
+    ms = graph_ms(lambda: fa.flashattn_bwd(q, k, v, o, lse, do, g=g))
+    plain_ms = event_ms(lambda: fa.flashattn_bwd_plain(q, k, v, o, lse, do,
+                                                       g=g))
+    library_ms = event_ms(library, iters=20)
+    # Five products of 2·hd flops per (row, key) pair the causal mask
+    # keeps (scores, dO·Vᵀ, dV, dQ, dK), bf16 at the tensor cores' peak;
+    # q, k, v, o, do and lse read and dq, dk and dv written once.
+    pairs = bh * sum(t - s + i + 1 for i in range(s))
+    nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+              + lse.numel() * lse.element_size())
+    b_ms, b_by = bound(nbytes, 10 * hd * pairs, PEAK_BF16)
+    return {"name": "flashattn_bwd", "route": "cuda",
+            "source": source("flashattn"),
+            "replaces": "src/repro/models/attention.py:175",
+            "replaces_note": "no pallas_call: the reference's flash "
+                             "backward is jnp (_flash_bwd, the custom "
+                             "VJP of chunked_causal_attention)",
+            "launches": launches["flashattn_bwd_dkdv"],
+            "launches_by_kernel": {n: launches[n] for n in fa.BWD_KERNELS},
+            "launches_counted_on": counted_on,
+            "shape": {"bh": bh, "bkv": bkv, "s": s, "t": t, "hd": hd,
+                      "dtype": str(dtype)},
+            "max_abs_err": err, "library_max_rel_err": lib_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "library": "scaled_dot_product_attention backward "
+                       "(enable_gqa), CUDA events"}
 
 
 def main() -> int:
@@ -2668,6 +3160,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
+
+    from repro_torch.kernels.flashattn import BWD_KERNELS
 
     dev = torch.device("cuda", 0)
     card = nvidia_smi()
@@ -2688,7 +3182,7 @@ def main() -> int:
               f"bf16 flash kernels without HGMMA or UTMALDG: {wg}")
     emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": _build.build_seconds,
-          "built": list(REPLACES), "ptxas": {
+          "built": [*REPLACES, *BWD_KERNELS], "ptxas": {
               src: ptxas_summary(log)
               for src, log in _build.build_log.items()},
           "sass": sass if sass is not None else
@@ -2700,8 +3194,11 @@ def main() -> int:
     checks = kernel_checks(dev)
     flash = flash_checks(dev)
     checks["max_abs_err"]["flashattn"] = flash.pop("max_abs_err")
+    flash_bwd = flash_bwd_checks(dev)
+    checks["max_abs_err"]["flashattn_bwd"] = flash_bwd.pop("max_abs_err")
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "rtol": K_RTOL, "atol": K_ATOL, **checks, "flashattn": flash})
+          "rtol": K_RTOL, "atol": K_ATOL, **checks, "flashattn": flash,
+          "flashattn_bwd": flash_bwd})
 
     (s1, main_res, main_wall, main_counts, dense_res,
      dense_counts) = main_path(dev, card)
@@ -2724,6 +3221,7 @@ def main() -> int:
     embed_launches = llm_embed_path(dev, card)
     hybrid_launches, hybrid_shape = llm_hybrid_path(dev, card)
     llm_xlstm_path(dev, card)
+    train_launches = train_path(dev, card)
     c3_live = path_counts[("C3", "hierarchical/fused")]
     c3_live_rowloop = path_counts[("C3", "hierarchical/fused_rowloop")]
     counts = {
@@ -2764,10 +3262,15 @@ def main() -> int:
         f"{HYBRID_ARCH} ServeEngine.generate ({LLM_PROMPTS} prompts, "
         f"bucket {hybrid_shape['s']}, {LLM_NEW_TOKENS} new tokens)")
     emit({"phase": "timing_flash_hybrid", **hybrid_flash, "card": card})
+    train_on = (f"{TRAIN_ARCH} train step ({TRAIN_BATCH} × {TRAIN_SEQ} "
+                f"tokens, remat)")
     by_name["flashattn"]["launches_other_paths"] = {
         moe_flash["launches_counted_on"]: moe_launches,
         f"{EMBED_ARCH} prefill (8 × 1,024 embeddings)": embed_launches,
-        hybrid_flash["launches_counted_on"]: hybrid_launches}
+        hybrid_flash["launches_counted_on"]: hybrid_launches,
+        train_on + ", with lse": train_launches["flashattn"]}
+    by_name["flashattn_bwd"] = flash_bwd_timing(dev, train_launches,
+                                                train_on)
     by_name["flashattn"]["other_shapes"] = [{
         k: row[k] for k in ("shape", "launches", "max_abs_err", "ms",
                             "plain_ms", "bound_ms", "bound_by",
@@ -2797,10 +3300,10 @@ def main() -> int:
             "hierarchical/fused_rowloop":
             shard_mode_counts[("C3", "hierarchical/fused_rowloop")].get(
                 "distthresh_compact_live_rowloop", 0)},
-        "flashattn": {}}
+        "flashattn": {}, "flashattn_bwd": {}}
     for name, paths in shard_launches.items():
         by_name[name]["launches_shard"] = paths
-    table = [by_name[name] for name in REPLACES]
+    table = [by_name[name] for name in (*REPLACES, "flashattn_bwd")]
     torch.cuda.synchronize()
 
     emit({"kernels": table})

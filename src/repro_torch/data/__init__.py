@@ -1,1 +1,2 @@
-"""Scenario generators (numpy; equal arrays to the reference at equal seeds)."""
+"""Scenario generators (numpy; equal arrays to the reference at equal
+seeds) and the synthetic LM token pipeline."""

@@ -54,9 +54,12 @@ SIGNATURES["distthresh_compact_live_rowloop_launch"] = SIGNATURES[
 SIGNATURES["distthresh_compact_subtiles"] = (_I,) * 6
 SIGNATURES["distthresh_compact_rowloop_blocks"] = (_I,) * 6
 SIGNATURES["distthresh_dense_blocks"] = (_I,) * 2
-SIGNATURES["flashattn_f32_launch"] = (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _F, _P)
+SIGNATURES["flashattn_f32_launch"] = (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _F, _P)
 SIGNATURES["flashattn_bf16_launch"] = SIGNATURES["flashattn_f32_launch"]
+SIGNATURES["flashattn_bwd_f32_launch"] = (_P,) * 10 + (_I,) * 5 + (_F, _P)
+SIGNATURES["flashattn_bwd_bf16_launch"] = SIGNATURES[
+    "flashattn_bwd_f32_launch"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

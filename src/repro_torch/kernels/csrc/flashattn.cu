@@ -87,6 +87,39 @@
 //   float32 peak of the CUDA cores (67 TFLOP/s on an H100 SXM at 700 W).
 // * Left on the table: synchronous staging, expf on all four threads of a
 //   row, and a 64-score register array that allows one block per SM.
+//
+// Both forward kernels take an optional float32 lse (BH, S): when it is
+// not null they write each row's log-sum-exp m + log(max(l, 1e-30)) (the
+// wgmma kernel converts its log2-domain m by ln 2), the residual the
+// backward recomputes the probabilities from.  Serving passes null.
+//
+// The backward: flashattn_bwd_{delta,dkdv,dq}_kernel, CUDA cores, float32
+// arithmetic, float32 or bf16 in and out, every head dim above, S <= T
+// with queries aligned to the end of the keys.  The reference has no
+// Pallas kernel here: its flash backward is the custom VJP of
+// chunked_causal_attention, jnp (_flash_bwd, src/repro/models/
+// attention.py:175-208), which these kernels compute: delta = rowsum(dO
+// * O); per (query, key) pair the causal mask keeps, p = exp((q * scale)
+// . k - lse), ds = p (dO . v - delta) scale; dV = sum p dO, dK = sum ds q,
+// dQ = sum ds k.  P is recomputed in float32, as the reference does, also
+// where the bf16 forward rounded it to bf16 before its value product.
+// * flashattn_bwd_delta_kernel: one warp per query row.
+// * flashattn_bwd_dkdv_kernel<hd, T>: one block per (KV head, 64-key
+//   tile), four threads per key holding k, v and the dk, dv sums in
+//   registers; the block walks the g query heads of the group and the
+//   query tiles that see its keys, each staged in shared memory (q, dO,
+//   lse, delta).  The GQA sum happens in the block in a fixed order: no
+//   atomics, and two calls give the same bits.
+// * flashattn_bwd_dq_kernel<hd, T>: one block per (query head, 64-row
+//   tile), the forward's layout, over the visible K/V tiles.
+// * Bound on an H100 SXM: five products of 2 * hd flops per causal pair
+//   (scores, dO V^T, dV, dQ, dK) at the tensor cores' bf16 peak, 0.087
+//   ms at granite-3-2b's training shape (BH 256, S = T = 1024, hd 64, g
+//   4); the kernels run seven products of 2 * hd (scores and dO V^T in
+//   both of the big kernels) on the CUDA cores.
+// * Left on the table: tensor cores, TMA and warp specialisation; each
+//   pair's exp is computed by four threads, and each query row's q and dO
+//   are read from shared memory once per key thread.
 #include <cuda.h>  // CUtensorMap and its enums; the CUDA driver's entry
                    // point is looked up at run time, so nothing links libcuda
 #include <cuda_bf16.h>
@@ -108,7 +141,13 @@ constexpr int kLanes = 4;                    // threads per query row
 constexpr int kThreads = kBlockQ * kLanes;   // 256
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 template <typename T>
 __device__ __forceinline__ float4 load4(const T* p, float scale) {
@@ -119,8 +158,9 @@ __device__ __forceinline__ float4 load4(const T* p, float scale) {
 template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads)
 flashattn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int s_len,
-                 int t_len, int g, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int s_len, int t_len, int g,
+                 float scale) {
   constexpr int kRow4 = HD / 4;              // float4 chunks in a row
   constexpr int kVec = kRow4 / kLanes;       // chunks per thread
   static_assert(kVec >= 1 && kRow4 % kLanes == 0, "hd must be 16..128");
@@ -226,12 +266,14 @@ flashattn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       store_out(p + 2, acc[c].z / denom);
       store_out(p + 3, acc[c].w / denom);
     }
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<size_t>(bh) * s_len + qi] = m + logf(denom);
   }
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-               int s_len, int t_len, int g, float scale,
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int s_len, int t_len, int g, float scale,
                cudaStream_t stream) {
   const int smem = 2 * kBlockK * HD * static_cast<int>(sizeof(float));
   auto* kern = flashattn_kernel<HD, float>;
@@ -245,8 +287,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid(bh, (s_len + kBlockQ - 1) / kBlockQ);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), s_len, t_len, g,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, s_len, t_len,
+      g, scale);
   return cudaGetLastError();
 }
 
@@ -256,6 +298,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
 constexpr int kWgThreads = 128;              // one warpgroup
 constexpr int kStages = 2;                   // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory geometry of one 64-row tile of Q, K or V at head dim HD:
 // kBoxes TMA boxes of kBox columns, each box kBlockK rows of kRowBytes
@@ -484,8 +527,9 @@ __global__ void __launch_bounds__(kWgThreads)
 flashattn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       __nv_bfloat16* __restrict__ o, int s_len, int t_len,
-                       int g, float scale_log2) {
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int s_len, int t_len, int g,
+                       float scale_log2) {
   using G = Tile<HD>;
   constexpr int kN = HD < 64 ? HD : 64;      // columns of one value product
   __shared__ __align__(8) uint64_t bars[kStages + 1];  // K/V stages, Q
@@ -625,6 +669,12 @@ flashattn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
   const int qi0 = qtile * kBlockQ + r0;
+  // The row's log-sum-exp in natural units: m is in the log2 domain.
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* row_lse = lse + static_cast<size_t>(bh) * s_len;
+    if (qi0 < s_len) row_lse[qi0] = m0 * kLn2 + logf(den0);
+    if (qi0 + 8 < s_len) row_lse[qi0 + 8] = m1 * kLn2 + logf(den1);
+  }
   // Element i lies in column 8 (i / 4) + ..., so i < HD / 2 stores
   // exactly the columns below HD.
 #pragma unroll
@@ -690,8 +740,8 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
-                int s_len, int t_len, int g, float scale,
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int s_len, int t_len, int g, float scale,
                 cudaStream_t stream) {
   using G = Tile<HD>;
   const EncodeTiled fn = encode_tiled();
@@ -709,51 +759,412 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
   if (set != cudaSuccess) return set;
   const dim3 grid(bh, (s_len + kBlockQ - 1) / kBlockQ);
   kern<<<grid, kWgThreads, G::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), s_len, t_len, g,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, s_len, t_len, g,
       scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int HD>
 int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
-           int bh, int s_len, int t_len, int g, float scale,
+           float* lse, int bh, int s_len, int t_len, int g, float scale,
            cudaStream_t stream) {
-  return bf16 ? launch_bf16<HD>(q, k, v, o, bh, s_len, t_len, g, scale, stream)
-              : launch_f32<HD>(q, k, v, o, bh, s_len, t_len, g, scale, stream);
+  return bf16 ? launch_bf16<HD>(q, k, v, o, lse, bh, s_len, t_len, g, scale,
+                                stream)
+              : launch_f32<HD>(q, k, v, o, lse, bh, s_len, t_len, g, scale,
+                               stream);
 }
 
 int launch_hd(bool bf16, const void* q, const void* k, const void* v,
-              void* o, int bh, int s_len, int t_len, int hd, int g,
+              void* o, void* lse, int bh, int s_len, int t_len, int hd, int g,
               float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch<16>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
-    case 32: return launch<32>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
-    case 64: return launch<64>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
-    case 112: return launch<112>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
-    case 128: return launch<128>(bf16, q, k, v, o, bh, s_len, t_len, g, scale, st);
+    case 16: return launch<16>(bf16, q, k, v, o, l, bh, s_len, t_len, g, scale, st);
+    case 32: return launch<32>(bf16, q, k, v, o, l, bh, s_len, t_len, g, scale, st);
+    case 64: return launch<64>(bf16, q, k, v, o, l, bh, s_len, t_len, g, scale, st);
+    case 112: return launch<112>(bf16, q, k, v, o, l, bh, s_len, t_len, g, scale, st);
+    case 128: return launch<128>(bf16, q, k, v, o, l, bh, s_len, t_len, g, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------
+// Backward: three kernels on the CUDA cores, float32 arithmetic, f32 or
+// bf16 in and out.
+// ---------------------------------------------------------------------
+constexpr int kDeltaRows = 8;                // rows (one warp each) a block
+
+// delta[r] = sum_d do[r, d] * o[r, d] in float32, one warp per row of the
+// (rows, hd) tensors; lanes take every 32nd column, then a butterfly sum.
+template <typename T>
+__global__ void __launch_bounds__(kDeltaRows * 32)
+flashattn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                           float* __restrict__ delta, int rows, int hd) {
+  const int r = blockIdx.x * kDeltaRows + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;                     // whole warps only
+  const T* orow = o + static_cast<size_t>(r) * hd;
+  const T* drow = dout + static_cast<size_t>(r) * hd;
+  float acc = 0.f;
+  for (int c = lane; c < hd; c += 32)
+    acc = fmaf(to_f32(drow[c]), to_f32(orow[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[r] = acc;
+}
+
+// dK and dV of one KV head's tile of kBlockK keys.  Four threads per key
+// (the forward's layout, with keys in place of query rows), each holding a
+// quarter of the key's k and v and of its dk and dv accumulators in
+// registers.  The block walks the g query heads of the group in order and,
+// for each, the query tiles that can see its keys, staging each tile's q
+// and dO (and their lse and delta) in shared memory; per query row it
+// recomputes p = exp((q * scale) . k - lse) under the causal mask, dp =
+// dO . v, ds = p (dp - delta) scale, and adds p dO to dv and ds q to dk.
+// The whole GQA sum happens in this block in a fixed order: no atomics,
+// and two calls give the same bits.
+template <int HD, typename T>
+__global__ void __launch_bounds__(kThreads)
+flashattn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, int s_len,
+                          int t_len, int g, float scale) {
+  constexpr int kRow4 = HD / 4;
+  constexpr int kVec = kRow4 / kLanes;
+  static_assert(kVec >= 1 && kRow4 % kLanes == 0, "hd must be 16..128");
+  extern __shared__ float4 smem[];
+  float4* qs = smem;                         // [kBlockQ][kRow4], unscaled
+  float4* ds = smem + kBlockQ * kRow4;       // dO tile
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * kBlockQ * kRow4);
+  float* delta_s = lse_s + kBlockQ;
+
+  const int kvh = blockIdx.x;
+  const int ktile = blockIdx.y;              // tile 0 sees the most queries
+  const int key = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int kj = ktile * kBlockK + key;      // this thread's key position
+  const int offset = t_len - s_len;          // >= 0, checked by the wrapper
+
+  float4 kr[kVec], vr[kVec], dka[kVec], dva[kVec];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const size_t krow = (static_cast<size_t>(kvh) * t_len + kj) * HD;
+#pragma unroll
+  for (int c = 0; c < kVec; ++c) {
+    const int at = (c * kLanes + lane) * 4;
+    kr[c] = kj < t_len ? load4(k + krow + at, 1.f) : zero;
+    vr[c] = kj < t_len ? load4(v + krow + at, 1.f) : zero;
+    dka[c] = zero;
+    dva[c] = zero;
+  }
+
+  // Query rows at positions below the tile's first key see none of it.
+  const int first_row = max(0, ktile * kBlockK - offset);
+  const int n_qtiles = (s_len + kBlockQ - 1) / kBlockQ;
+  for (int j = 0; j < g; ++j) {
+    const int bh = kvh * g + j;
+    for (int qt = first_row / kBlockQ; qt < n_qtiles; ++qt) {
+      const int i0 = qt * kBlockQ;
+      const int rows = min(kBlockQ, s_len - i0);
+      __syncthreads();                       // the previous tile is used up
+      for (int i = threadIdx.x; i < kBlockQ * kRow4; i += kThreads) {
+        const int r = i / kRow4;
+        float4 qv = zero, dov = zero;
+        if (r < rows) {
+          const size_t at = (static_cast<size_t>(bh) * s_len + i0 + r) * HD +
+                            (i % kRow4) * 4;
+          qv = load4(q + at, 1.f);
+          dov = load4(dout + at, 1.f);
+        }
+        qs[i] = qv;
+        ds[i] = dov;
+      }
+      if (threadIdx.x < rows) {
+        const size_t at = static_cast<size_t>(bh) * s_len + i0 + threadIdx.x;
+        lse_s[threadIdx.x] = lse[at];
+        delta_s[threadIdx.x] = delta[at];
+      }
+      __syncthreads();
+
+      for (int r = 0; r < rows; ++r) {
+        float sc = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+          const float4 qq = qs[r * kRow4 + c * kLanes + lane];
+          const float4 dd = ds[r * kRow4 + c * kLanes + lane];
+          sc = fmaf(qq.x * scale, kr[c].x, sc);
+          sc = fmaf(qq.y * scale, kr[c].y, sc);
+          sc = fmaf(qq.z * scale, kr[c].z, sc);
+          sc = fmaf(qq.w * scale, kr[c].w, sc);
+          dp = fmaf(dd.x, vr[c].x, dp);
+          dp = fmaf(dd.y, vr[c].y, dp);
+          dp = fmaf(dd.z, vr[c].z, dp);
+          dp = fmaf(dd.w, vr[c].w, dp);
+        }
+        sc += __shfl_xor_sync(0xffffffffu, sc, 1);
+        sc += __shfl_xor_sync(0xffffffffu, sc, 2);
+        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+        dp += __shfl_xor_sync(0xffffffffu, dp, 2);
+        // Keys past T sit above every query row's position: masked too.
+        const float p = kj <= offset + i0 + r ? expf(sc - lse_s[r]) : 0.f;
+        const float dsc = p * (dp - delta_s[r]) * scale;
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) {
+          const float4 qq = qs[r * kRow4 + c * kLanes + lane];
+          const float4 dd = ds[r * kRow4 + c * kLanes + lane];
+          dva[c].x = fmaf(p, dd.x, dva[c].x);
+          dva[c].y = fmaf(p, dd.y, dva[c].y);
+          dva[c].z = fmaf(p, dd.z, dva[c].z);
+          dva[c].w = fmaf(p, dd.w, dva[c].w);
+          dka[c].x = fmaf(dsc, qq.x, dka[c].x);
+          dka[c].y = fmaf(dsc, qq.y, dka[c].y);
+          dka[c].z = fmaf(dsc, qq.z, dka[c].z);
+          dka[c].w = fmaf(dsc, qq.w, dka[c].w);
+        }
+      }
+    }
+  }
+
+  if (kj < t_len) {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      const size_t at = krow + (c * kLanes + lane) * 4;
+      store_out(dk + at + 0, dka[c].x);
+      store_out(dk + at + 1, dka[c].y);
+      store_out(dk + at + 2, dka[c].z);
+      store_out(dk + at + 3, dka[c].w);
+      store_out(dv + at + 0, dva[c].x);
+      store_out(dv + at + 1, dva[c].y);
+      store_out(dv + at + 2, dva[c].z);
+      store_out(dv + at + 3, dva[c].w);
+    }
+  }
+}
+
+// dQ of one query head's tile of kBlockQ rows: the forward's layout (four
+// threads per row; q scaled by 1/sqrt(hd) and dO in registers, K and V
+// tiles of kBlockK keys staged in shared memory, only the tiles the causal
+// mask leaves visible); per key, p and ds as in the dK/dV kernel, and dq
+// += ds k.
+template <int HD, typename T>
+__global__ void __launch_bounds__(kThreads)
+flashattn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int s_len, int t_len, int g, float scale) {
+  constexpr int kRow4 = HD / 4;
+  constexpr int kVec = kRow4 / kLanes;
+  static_assert(kVec >= 1 && kRow4 % kLanes == 0, "hd must be 16..128");
+  extern __shared__ float4 smem[];
+  float4* ks = smem;                         // [kBlockK][kRow4]
+  float4* vs = smem + kBlockK * kRow4;
+
+  const int bh = blockIdx.x;
+  const int qtile = gridDim.y - 1 - blockIdx.y;  // the longest rows first
+  const int row = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int qi = qtile * kBlockQ + row;
+  const bool valid = qi < s_len;
+  const int offset = t_len - s_len;
+  const int q_pos = offset + qi;
+  const T* kb = k + static_cast<size_t>(bh / g) * t_len * HD;
+  const T* vb = v + static_cast<size_t>(bh / g) * t_len * HD;
+
+  float4 qr[kVec], dor[kVec], dqa[kVec];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const size_t qrow = (static_cast<size_t>(bh) * s_len + qi) * HD;
+#pragma unroll
+  for (int c = 0; c < kVec; ++c) {
+    const int at = (c * kLanes + lane) * 4;
+    qr[c] = valid ? load4(q + qrow + at, scale) : zero;
+    dor[c] = valid ? load4(dout + qrow + at, 1.f) : zero;
+    dqa[c] = zero;
+  }
+  const size_t at_row = static_cast<size_t>(bh) * s_len + qi;
+  const float lse_i = valid ? lse[at_row] : 0.f;
+  const float delta_i = valid ? delta[at_row] : 0.f;
+
+  const int last_row = min(s_len, (qtile + 1) * kBlockQ) - 1;
+  const int n_tiles = (offset + last_row) / kBlockK + 1;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();                         // the previous tile is used up
+    for (int i = threadIdx.x; i < kBlockK * kRow4; i += kThreads) {
+      const int r = i / kRow4;
+      float4 kv = zero, vv = zero;
+      if (k0 + r < t_len) {
+        const size_t at = static_cast<size_t>(k0 + r) * HD + (i % kRow4) * 4;
+        kv = load4(kb + at, 1.f);
+        vv = load4(vb + at, 1.f);
+      }
+      ks[i] = kv;
+      vs[i] = vv;
+    }
+    __syncthreads();
+
+    for (int jj = 0; jj < kBlockK; ++jj) {
+      float sc = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        const float4 kk = ks[jj * kRow4 + c * kLanes + lane];
+        const float4 vv = vs[jj * kRow4 + c * kLanes + lane];
+        sc = fmaf(qr[c].x, kk.x, sc);
+        sc = fmaf(qr[c].y, kk.y, sc);
+        sc = fmaf(qr[c].z, kk.z, sc);
+        sc = fmaf(qr[c].w, kk.w, sc);
+        dp = fmaf(dor[c].x, vv.x, dp);
+        dp = fmaf(dor[c].y, vv.y, dp);
+        dp = fmaf(dor[c].z, vv.z, dp);
+        dp = fmaf(dor[c].w, vv.w, dp);
+      }
+      sc += __shfl_xor_sync(0xffffffffu, sc, 1);
+      sc += __shfl_xor_sync(0xffffffffu, sc, 2);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 2);
+      const float p = valid && k0 + jj <= q_pos ? expf(sc - lse_i) : 0.f;
+      const float dsc = p * (dp - delta_i) * scale;
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        const float4 kk = ks[jj * kRow4 + c * kLanes + lane];
+        dqa[c].x = fmaf(dsc, kk.x, dqa[c].x);
+        dqa[c].y = fmaf(dsc, kk.y, dqa[c].y);
+        dqa[c].z = fmaf(dsc, kk.z, dqa[c].z);
+        dqa[c].w = fmaf(dsc, kk.w, dqa[c].w);
+      }
+    }
+  }
+
+  if (valid) {
+#pragma unroll
+    for (int c = 0; c < kVec; ++c) {
+      T* p = dq + qrow + (c * kLanes + lane) * 4;
+      store_out(p + 0, dqa[c].x);
+      store_out(p + 1, dqa[c].y);
+      store_out(p + 2, dqa[c].z);
+      store_out(p + 3, dqa[c].w);
+    }
+  }
+}
+
+template <int HD, typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* lse, const void* dout, void* delta, void* dq,
+               void* dk, void* dv, int bh, int s_len, int t_len, int g,
+               float scale, cudaStream_t stream) {
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const float* tl = static_cast<const float*>(lse);
+  float* td = static_cast<float*>(delta);
+  const int rows = bh * s_len;
+
+  flashattn_bwd_delta_kernel<T><<<(rows + kDeltaRows - 1) / kDeltaRows,
+                                  kDeltaRows * 32, 0, stream>>>(
+      static_cast<const T*>(o), tdo, td, rows, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // Each limit is lifted once per instantiation (and so outside any graph
+  // capture after the first call).
+  auto* dkdv = flashattn_bwd_dkdv_kernel<HD, T>;
+  constexpr int dkdv_smem = 2 * kBlockQ * HD * sizeof(float) +
+                            2 * kBlockQ * sizeof(float);
+  static const cudaError_t dkdv_set =
+      dkdv_smem > 48 * 1024
+          ? cudaFuncSetAttribute(dkdv,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 dkdv_smem)
+          : cudaSuccess;
+  if (dkdv_set != cudaSuccess) return dkdv_set;
+  dkdv<<<dim3(bh / g, (t_len + kBlockK - 1) / kBlockK), kThreads, dkdv_smem,
+         stream>>>(tq, tk, tv, tdo, tl, td, static_cast<T*>(dk),
+                   static_cast<T*>(dv), s_len, t_len, g, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto* dqk = flashattn_bwd_dq_kernel<HD, T>;
+  constexpr int dq_smem = 2 * kBlockK * HD * sizeof(float);
+  static const cudaError_t dq_set =
+      dq_smem > 48 * 1024
+          ? cudaFuncSetAttribute(dqk,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 dq_smem)
+          : cudaSuccess;
+  if (dq_set != cudaSuccess) return dq_set;
+  dqk<<<dim3(bh, (s_len + kBlockQ - 1) / kBlockQ), kThreads, dq_smem,
+        stream>>>(tq, tk, tv, tdo, tl, td, static_cast<T*>(dq), s_len, t_len,
+                  g, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_hd(const void* q, const void* k, const void* v, const void* o,
+                  const void* lse, const void* dout, void* delta, void* dq,
+                  void* dk, void* dv, int bh, int s_len, int t_len, int hd,
+                  int g, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLASH_BWD(HD)                                                      \
+  launch_bwd<HD, T>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, s_len, \
+                    t_len, g, scale, st)
+  switch (hd) {
+    case 16: return FLASH_BWD(16);
+    case 32: return FLASH_BWD(32);
+    case 64: return FLASH_BWD(64);
+    case 112: return FLASH_BWD(112);
+    case 128: return FLASH_BWD(128);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FLASH_BWD
 }
 
 }  // namespace
 
 // q (bh, s_len, hd), k and v (bh / g, t_len, hd), o like q; all
-// contiguous and 16-byte aligned, of one type.  flashattn_f32_launch runs
-// the CUDA-core kernel on float32, flashattn_bf16_launch the tensor-core
+// contiguous and 16-byte aligned, of one type; lse null, or float32 (bh,
+// s_len), which then receives each row's log-sum-exp m + log(max(l,
+// 1e-30)) (the backward's residual).  flashattn_f32_launch runs the
+// CUDA-core kernel on float32, flashattn_bf16_launch the tensor-core
 // kernel on bfloat16.  Each returns the launch's cudaError_t.
 extern "C" int flashattn_f32_launch(const void* q, const void* k,
-                                    const void* v, void* o, int bh, int s_len,
-                                    int t_len, int hd, int g, float scale,
-                                    void* stream) {
-  return launch_hd(false, q, k, v, o, bh, s_len, t_len, hd, g, scale,
+                                    const void* v, void* o, void* lse, int bh,
+                                    int s_len, int t_len, int hd, int g,
+                                    float scale, void* stream) {
+  return launch_hd(false, q, k, v, o, lse, bh, s_len, t_len, hd, g, scale,
                    stream);
 }
 
 extern "C" int flashattn_bf16_launch(const void* q, const void* k,
-                                     const void* v, void* o, int bh,
-                                     int s_len, int t_len, int hd, int g,
-                                     float scale, void* stream) {
-  return launch_hd(true, q, k, v, o, bh, s_len, t_len, hd, g, scale,
+                                     const void* v, void* o, void* lse,
+                                     int bh, int s_len, int t_len, int hd,
+                                     int g, float scale, void* stream) {
+  return launch_hd(true, q, k, v, o, lse, bh, s_len, t_len, hd, g, scale,
                    stream);
+}
+
+// The backward of the same attention: q, k, v, o as above, lse float32
+// (bh, s_len) from the forward, dout like o; delta float32 (bh, s_len)
+// scratch; dq like q, dk and dv like k.  Launches the delta, dK/dV and dQ
+// kernels in that order on `stream`; returns the first launch error.
+extern "C" int flashattn_bwd_f32_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* delta, void* dq, void* dk,
+    void* dv, int bh, int s_len, int t_len, int hd, int g, float scale,
+    void* stream) {
+  return launch_bwd_hd<float>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh,
+                              s_len, t_len, hd, g, scale, stream);
+}
+
+extern "C" int flashattn_bwd_bf16_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* delta, void* dq, void* dk,
+    void* dv, int bh, int s_len, int t_len, int hd, int g, float scale,
+    void* stream) {
+  return launch_bwd_hd<__nv_bfloat16>(q, k, v, o, lse, dout, delta, dq, dk,
+                                      dv, bh, s_len, t_len, hd, g, scale,
+                                      stream);
 }

@@ -27,9 +27,22 @@ Differences from the TPU kernel, none visible in the results:
   f32 or bf16, q, k and v of one dtype; bf16 tensors start 16-byte
   aligned (TMA's rule; every fresh allocation does).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor it runs :func:`flashattn_plain`, the same function in plain
-PyTorch.  There is no fallback from one to the other.
+The gradient: :func:`flashattn_fwd` also returns each row's
+log-sum-exp, and :func:`flashattn_bwd` is the hand-written backward (three
+CUDA kernels, ``BWD_KERNELS``; the reference's backward is jnp, the
+custom VJP ``_flash_bwd`` of ``repro/models/attention.py``, with no
+Pallas kernel).  :class:`FlashAttention` ties them into an
+``autograd.Function`` that saves (q, k, v, o, lse).  The backward
+recomputes the probabilities in float32 from q, k and lse, as the
+reference does, although a bf16 forward rounded them to bf16 before its
+value product.  One difference: delta = rowsum(do · o) reads the output
+in q's dtype, where the reference keeps its float32 output as the
+residual (the same in float32).
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs its plain version (:func:`flashattn_plain`,
+:func:`flashattn_fwd_plain`, :func:`flashattn_bwd_plain`), the same
+function in plain PyTorch.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -47,6 +60,9 @@ HEAD_DIMS = (16, 32, 64, 112, 128)
 BLOCK_Q = BLOCK_K = 64
 #: The kernel's grid has one y index per query tile.
 MAX_S = 65535 * BLOCK_Q
+#: The backward's kernels, in launch order, by their ``LAUNCHES`` names.
+BWD_KERNELS = ("flashattn_bwd_delta", "flashattn_bwd_dkdv",
+               "flashattn_bwd_dq")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: int):
@@ -78,34 +94,113 @@ def flashattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, g: int,
     head, as the module docstring lays out; returns (BH, S, hd) in q's
     dtype.  ``device`` (default: the tensors' device, resolved as every
     entry point resolves it) must be where the tensors lie."""
-    _check(q, k, v, g)
+    return _forward(q, k, v, g, device, with_lse=False)[0]
+
+
+def flashattn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  g: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flashattn` that also returns each query row's log-sum-exp
+    ``m + log(max(l, 1e-30))``, float32 (BH, S): the residual the backward
+    recomputes the probabilities from."""
+    return _forward(q, k, v, g, device, with_lse=True)
+
+
+def _on(q: torch.Tensor, device) -> torch.device:
     dev = q.device if device is None else resolve_device(device)
     if q.device != dev:
         raise ValueError(f"tensors on {q.device}, but device={dev}")
+    return dev
+
+
+def _contiguous(**xs: torch.Tensor) -> None:
+    for what, x in xs.items():
+        if not x.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+
+def _forward(q, k, v, g: int, device, *, with_lse: bool):
+    _check(q, k, v, g)
+    dev = _on(q, device)
     if dev.type != "cuda":
-        return flashattn_plain(q, k, v, g=g)
+        return flashattn_fwd_plain(q, k, v, g=g) if with_lse else (
+            flashattn_plain(q, k, v, g=g), None)
     bh, s, hd = q.shape
     t = k.shape[1]
     if s > MAX_S:
         raise ValueError(f"S={s} above the kernel's {MAX_S}")
-    for x, what in ((q, "q"), (k, "k"), (v, "v")):
-        if not x.is_contiguous():
-            raise ValueError(f"{what} must be contiguous")
+    _contiguous(q=q, k=k, v=v)
     bf16 = q.dtype == torch.bfloat16
     if bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("bf16 q, k, v must start at 16-byte aligned "
                          "addresses (the kernel's TMA copies need it)")
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, s), dtype=torch.float32, device=dev)
+           if with_lse else None)
     if bh and s:
         from repro_torch.kernels import _build
         lib = _build.load()
         launch = lib.flashattn_bf16_launch if bf16 else \
             lib.flashattn_f32_launch
-        err = launch(ptr(q), ptr(k), ptr(v), ptr(out), bh, s, t, hd, g,
-                     float(_scale(hd)), stream(dev))
+        err = launch(ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), bh, s, t,
+                     hd, g, float(_scale(hd)), stream(dev))
         raise_on(err, "flashattn")
         count_launch("flashattn")
-    return out
+    return out, lse
+
+
+def flashattn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  g: int, device=None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of :func:`flashattn`'s output ``o`` under the
+    upstream gradient ``do`` (like ``o``), from the forward's ``lse``: dq
+    like q, dk and dv like k, in their dtype.  On the card: three CUDA
+    kernels (``LAUNCHES["flashattn_bwd_delta"]``, ``["flashattn_bwd_dkdv"]``
+    and ``["flashattn_bwd_dq"]``), float32 arithmetic, the GQA sum over
+    each KV head's query heads in one block in a fixed order (two calls
+    give the same bits); on the CPU :func:`flashattn_bwd_plain`."""
+    _check_bwd(q, k, v, o, lse, do, g)
+    dev = _on(q, device)
+    if dev.type != "cuda":
+        return flashattn_bwd_plain(q, k, v, o, lse, do, g=g)
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    if s > MAX_S or t > MAX_S:
+        raise ValueError(f"S={s} or T={t} above the kernels' {MAX_S}")
+    _contiguous(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    bf16 = q.dtype == torch.bfloat16
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((bh, s), dtype=torch.float32, device=dev)
+    if bh and s:
+        from repro_torch.kernels import _build
+        lib = _build.load()
+        launch = lib.flashattn_bwd_bf16_launch if bf16 else \
+            lib.flashattn_bwd_f32_launch
+        err = launch(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(do),
+                     ptr(delta), ptr(dq), ptr(dk), ptr(dv), bh, s, t, hd, g,
+                     float(_scale(hd)), stream(dev))
+        raise_on(err, "flashattn_bwd")
+        for name in BWD_KERNELS:
+            count_launch(name)
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
+
+
+def _check_bwd(q, k, v, o, lse, do, g: int) -> None:
+    _check(q, k, v, g)
+    if o.shape != q.shape or do.shape != q.shape or not (
+            o.dtype == do.dtype == q.dtype):
+        raise ValueError(f"o and do must be q's {tuple(q.shape)} "
+                         f"{q.dtype}; got {tuple(o.shape)} {o.dtype}, "
+                         f"{tuple(do.shape)} {do.dtype}")
+    if lse.shape != q.shape[:2] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:2])}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if not q.device == o.device == lse.device == do.device:
+        raise ValueError(f"q, o, lse, do on {q.device}/{o.device}/"
+                         f"{lse.device}/{do.device}")
 
 
 def _scale(hd: int) -> np.float32:
@@ -118,6 +213,13 @@ def flashattn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Plain PyTorch version of :func:`flashattn`: the online-softmax loop
     of the reference's ``_flash_fwd_loop`` over KV blocks of
     :data:`BLOCK_K` keys, in float32."""
+    return flashattn_fwd_plain(q, k, v, g=g)[0]
+
+
+def flashattn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, g: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`flashattn_fwd`: (:func:`flashattn_plain`'s
+    output, its loop's ``m + log(max(l, 1e-30))``)."""
     _check(q, k, v, g)
     bh, s, hd = q.shape
     bkv, t, _ = k.shape
@@ -139,9 +241,74 @@ def flashattn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bgst,bth->bgsh", p, vb)
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.reshape(bh, s, hd).to(q.dtype)
+    l_safe = torch.clamp_min(l, 1e-30)
+    out = acc / l_safe[..., None]
+    lse = m + torch.log(l_safe)
+    return out.reshape(bh, s, hd).to(q.dtype), lse.reshape(bh, s)
 
 
-__all__ = ["BLOCK_K", "BLOCK_Q", "HEAD_DIMS", "NEG_INF", "flashattn",
+def flashattn_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, g: int
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`flashattn_bwd`: the reference's
+    ``_flash_bwd`` chunk loop over KV blocks of :data:`BLOCK_K` keys, in
+    float32: delta = rowsum(do · o); per block, p = exp(scores − lse)
+    under the causal mask, dv = pᵀ do, ds = p (do vᵀ − delta) / sqrt(hd),
+    dq += ds k, dk = dsᵀ q."""
+    _check_bwd(q, k, v, o, lse, do, g)
+    bh, s, hd = q.shape
+    bkv, t, _ = k.shape
+    scale = float(_scale(hd))
+    q32 = q.float().reshape(bkv, g, s, hd)
+    do32 = do.float().reshape(bkv, g, s, hd)
+    delta = (do32 * o.float().reshape(bkv, g, s, hd)).sum(dim=-1)
+    lse = lse.reshape(bkv, g, s)
+    q_pos = (t - s) + torch.arange(s, device=q.device)
+    dq = torch.zeros_like(q32)
+    dks, dvs = [], []
+    for k0 in range(0, t, BLOCK_K):
+        kb = k[:, k0:k0 + BLOCK_K].float()
+        vb = v[:, k0:k0 + BLOCK_K].float()
+        k_pos = k0 + torch.arange(kb.shape[1], device=q.device)
+        scores = torch.einsum("bgsh,bth->bgst", q32 * scale, kb)
+        mask = k_pos[None, :] <= q_pos[:, None]
+        scores = torch.where(mask, scores, NEG_INF)
+        p = torch.exp(scores - lse[..., None])
+        dvs.append(torch.einsum("bgst,bgsh->bth", p, do32))
+        dp = torch.einsum("bgsh,bth->bgst", do32, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bgst,bth->bgsh", ds, kb)
+        dks.append(torch.einsum("bgst,bgsh->bth", ds, q32))
+    if not dks:                               # T = 0
+        return (dq.reshape(bh, s, hd).to(q.dtype), torch.zeros_like(k),
+                torch.zeros_like(v))
+    return (dq.reshape(bh, s, hd).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flashattn` with a gradient: ``forward`` runs
+    :func:`flashattn_fwd` and saves (q, k, v, o, lse), ``backward``
+    :func:`flashattn_bwd` (the reference's ``custom_vjp``, ``_flash_fwd``
+    and ``_flash_bwd``).  ``FlashAttention.apply(q, k, v, g)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, g):
+        o, lse = flashattn_fwd(q, k, v, g=g)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.g = g
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flashattn_bwd(q, k, v, o, lse, do.contiguous(), g=ctx.g)
+        return dq, dk, dv, None
+
+
+__all__ = ["BLOCK_K", "BLOCK_Q", "BWD_KERNELS", "FlashAttention",
+           "HEAD_DIMS", "NEG_INF", "flashattn", "flashattn_bwd",
+           "flashattn_bwd_plain", "flashattn_fwd", "flashattn_fwd_plain",
            "flashattn_plain"]

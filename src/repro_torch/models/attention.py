@@ -5,14 +5,18 @@ GQA layout as the reference's: queries (B, S, KVH, G, hd) with
 H = KVH·G, keys and values (B, T, KVH, hd), so repeated KV heads never
 materialize.  Prefill attention (:func:`chunked_causal_attention`) runs
 the hand-written CUDA kernel ``kernels.flashattn`` on the card, the
-reference's Pallas TPU kernel's counterpart.  Decode attention stays plain
-PyTorch, as the reference computes it with ``einsum`` and ``softmax``
-outside any kernel.
+reference's Pallas TPU kernel's counterpart.  Where a gradient is wanted
+(grad mode on and q, k or v requiring one), the same kernel runs through
+``kernels.flashattn.FlashAttention``, the reference's custom VJP: it
+saves (q, k, v, o, lse) and its backward is the hand-written backward
+kernel, which recomputes the probability tiles.  Decode attention stays
+plain PyTorch, as the reference computes it with ``einsum`` and
+``softmax`` outside any kernel.
 
 Not ported: the reference's ``shardctx.constrain`` calls (no-ops outside
-a mesh context; the device-mesh version comes with ``launch/``), KV-head
-replication for tensor parallelism (``kv_repeat``, a launcher setting),
-and the custom VJP (the backward belongs to training).
+a mesh context; the device-mesh version comes with ``launch/``) and
+KV-head replication for tensor parallelism (``kv_repeat``, a launcher
+setting).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.kernels.flashattn import NEG_INF, flashattn
+from repro_torch.kernels.flashattn import NEG_INF, FlashAttention, flashattn
 from repro_torch.models.layers import RMSNorm, apply_rope, linear
 
 
@@ -65,14 +69,19 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     q: (B, S, KVH, G, hd); k, v: (B, T, KVH, hd) → (B, S, KVH, G, hd) in
     q's dtype.  Reshapes to the kernel's (B·KVH·G, S, hd) / (B·KVH, T, hd)
     layout (one copy each way) and calls :func:`kernels.flashattn.flashattn`
-    on the tensors' device.
+    on the tensors' device, or ``FlashAttention`` (its gradient through
+    the backward kernel) when one is wanted.
     """
     b, s, kvh, g, hd = q.shape
     t = k.shape[1]
-    qf = q.permute(0, 2, 3, 1, 4).reshape(b * kvh * g, s, hd)
-    kf = k.permute(0, 2, 1, 3).reshape(b * kvh, t, hd)
-    vf = v.permute(0, 2, 1, 3).reshape(b * kvh, t, hd)
-    o = flashattn(qf.contiguous(), kf.contiguous(), vf.contiguous(), g=g)
+    qf = q.permute(0, 2, 3, 1, 4).reshape(b * kvh * g, s, hd).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(b * kvh, t, hd).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(b * kvh, t, hd).contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o = FlashAttention.apply(qf, kf, vf, g)
+    else:
+        o = flashattn(qf, kf, vf, g=g)
     return o.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4)
 
 

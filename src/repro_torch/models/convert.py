@@ -19,6 +19,8 @@ biases): rounding them would move the routing or the decays.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -120,4 +122,21 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
     return state
 
 
-__all__ = ["params_from_jax"]
+def train_state_from_jax(cfg: ModelConfig, state, *, device="cuda") -> dict:
+    """The port's train state (``train.step``'s ``{"params": LM, "opt":
+    {"m", "v", "master", "count"}}``) on ``device`` for the reference's
+    ``{"params", "opt": {"m", "v", "master", "count"}}`` of numpy arrays:
+    the parameters as :func:`params_from_jax` carries them, ``m``, ``v``
+    and ``master`` float32 whatever the model dtype, ``count`` int32."""
+    model = transformer.LM(cfg, device=device)
+    model.load_state_dict(params_from_jax(cfg, state["params"]))
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    dev = model.device
+    opt = {k: {n: t.to(dev) for n, t in params_from_jax(
+        f32, state["opt"][k]).items()} for k in ("m", "v", "master")}
+    opt["count"] = torch.tensor(int(np.asarray(state["opt"]["count"])),
+                                dtype=torch.int32, device=dev)
+    return {"params": model, "opt": opt}
+
+
+__all__ = ["params_from_jax", "train_state_from_jax"]

@@ -5,14 +5,16 @@ Numerics follow the reference: norms and RoPE compute in float32 and cast
 back; every projection multiplies in the model dtype with float32
 accumulation (``torch.matmul`` on bf16 accumulates in float32 and rounds
 once, as the reference's ``preferred_element_type=float32`` followed by a
-cast); logits come out in float32.  Training's losses
-(``cross_entropy``, ``chunked_cross_entropy``) are not ported here.
+cast); logits come out in float32.  Training's losses are here too:
+``cross_entropy`` on materialised logits and ``chunked_cross_entropy``,
+which never holds more than one chunk's logits.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 MLP_TYPES = ("swiglu", "gelu", "relu2")
 
@@ -122,5 +124,49 @@ class Embedding(nn.Module):
         return logits
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy: logits (B, S, V) float32, labels (B,
+    S) ints."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def _ce_chunk(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+              true_vocab: int | None) -> torch.Tensor:
+    """Σ (logsumexp − gold logit) over one chunk of positions: the logits
+    as ``Embedding.unembed`` makes them (float32 product of the model-dtype
+    operands), −1e30 past ``true_vocab``."""
+    logits = torch.matmul(x.float(), table.float().T)
+    vp = table.shape[0]
+    if true_vocab is not None and true_vocab < vp:
+        keep = torch.arange(vp, device=x.device) < true_vocab
+        logits = torch.where(keep, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_cross_entropy(head: Embedding, x: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 512,
+                          true_vocab: int | None = None) -> torch.Tensor:
+    """Fused unembed and mean cross-entropy over x (B, S, D) and labels
+    (B, S), streamed over chunks of ``chunk`` positions: each chunk's
+    float32 logits are made, reduced to Σ (logsumexp − gold) and dropped,
+    and the backward recomputes them chunk by chunk (each chunk runs under
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    body).  The reference pads the last chunk and weighs its padded
+    positions 0; here the last chunk is simply shorter.  The sum is
+    divided by B·S."""
+    b, s, _ = x.shape
+    total = x.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(_ce_chunk, x[:, c0:c0 + chunk], head.table,
+                                   labels[:, c0:c0 + chunk], true_vocab,
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
 __all__ = ["MLP", "MLP_TYPES", "Embedding", "RMSNorm", "apply_rope",
-           "groupnorm", "linear", "mlp_param_count", "rope_frequencies"]
+           "chunked_cross_entropy", "cross_entropy", "groupnorm", "linear",
+           "mlp_param_count", "rope_frequencies"]

@@ -149,12 +149,30 @@ class Mamba2(nn.Module):
         self.out_proj = linear(d_inner, d_model, **kw)
 
 
+class _SiLU(torch.autograd.Function):
+    """The forward's stepwise arithmetic with ``jax.nn.silu``'s gradient,
+    g·s + (g·x)·s·(1 − s) for s = logistic(x), in x's dtype.  Autograd
+    through the forward's own steps would multiply 0 by exp(−x) = inf
+    below x ≈ −88 and return NaN where the reference returns 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * (1 / (1 + torch.exp(-x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = 1 / (1 + torch.exp(-x))
+        return g * s + g * x * s * (1 - s)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x · 1 / (1 + exp(−x))`` with every operation in x's dtype, as
     the reference's ``jax.nn.silu`` (``x · logistic(x)``) evaluates it:
     in bf16 each of the four steps rounds.  ``F.silu`` rounds once, which
     moves a Mamba2 output by a bf16 step per layer."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return _SiLU.apply(x)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,

@@ -27,21 +27,35 @@ decode cache is the reference's dict for the pattern (``k``/``v``;
 ``mlstm`` and the ``slstm`` tuple (h, c, n, m)), of the same shapes,
 written in place by ``decode_step``.
 
+The parameters require gradients, as any ``nn.Module``'s do:
+:func:`forward` and :func:`loss_fn` (training's loss, with the logits
+streamed through ``layers.chunked_cross_entropy``) are differentiable,
+and with ``remat`` each block that the reference's ``_trunk`` wraps in
+``jax.checkpoint`` runs under ``torch.utils.checkpoint`` (its activations
+recomputed in the backward): every attention layer of ``attn``, every
+Mamba2 layer of ``zamba`` (not the shared block), every mLSTM layer of
+``xlstm`` (not the sLSTM).  :func:`prefill` and :func:`decode_step` run
+under ``torch.no_grad()`` and build no graph.
+
 Not ported yet (ROADMAP A.13): KV-head replication (``kv_replication !=
-1``, a launcher setting), which raises ``NotImplementedError``, and
-training's loss.  :func:`param_count` counts every configuration, as the
-reference does.
+1``, a launcher setting), which raises ``NotImplementedError``.
+:func:`param_count` counts every configuration, as the reference does.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, ssm, xlstm
-from repro_torch.models.layers import MLP, Embedding, RMSNorm, mlp_param_count
+from repro_torch.models.layers import (MLP, Embedding, RMSNorm,
+                                       chunked_cross_entropy, mlp_param_count)
 from repro_torch.models.moe import MoE, moe_apply
+
+#: Weight of the layers' summed MoE load-balance loss in :func:`loss_fn`.
+MOE_AUX_COEF = 0.01
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -116,12 +130,14 @@ def _layers(layer_cls, cfg: ModelConfig, n: int, device) -> nn.ModuleList:
 class LM(nn.Module):
     """The parameters of one model, uninitialised (see :func:`init_params`
     and ``convert.params_from_jax``); ``device`` is resolved as every
-    entry point resolves it."""
+    entry point resolves it, or ``"meta"`` for shapes and dtypes alone
+    (:func:`param_specs`)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         super().__init__()
         _check_supported(cfg)
-        dev = resolve_device(device)
+        dev = torch.device("meta") if str(device) == "meta" else \
+            resolve_device(device)
         # Shapes first (on the meta device), then storage on `dev`: no
         # layer spends time or random numbers on an init that is
         # overwritten.
@@ -149,7 +165,6 @@ class LM(nn.Module):
             raise ValueError(f"unknown block_pattern {cfg.block_pattern!r}")
         self.final_ln = RMSNorm(cfg.d_model, **kw)
         self.to_empty(device=dev)
-        self.requires_grad_(False)          # serving only: no backward yet
 
     @property
     def device(self) -> torch.device:
@@ -157,6 +172,13 @@ class LM(nn.Module):
 
     def output_head(self) -> Embedding:
         return self.embed if self.cfg.tie_embeddings else self.head
+
+
+def param_specs(cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The parameters by name as meta-device tensors of their shapes and
+    dtypes: no storage is allocated."""
+    return {n: p.detach() for n, p in
+            LM(cfg, device="meta").named_parameters()}
 
 
 #: Parameters that :func:`init_params` draws otherwise than the general
@@ -173,6 +195,7 @@ _INIT = {
 }
 
 
+@torch.no_grad()
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda") -> LM:
     """Random weights from ``generator`` (a generator of ``device``),
@@ -269,18 +292,29 @@ def _mamba(cfg: ModelConfig, layer: MambaLayer, x: torch.Tensor,
 
 
 def _blocks(cfg: ModelConfig, model: LM, x: torch.Tensor,
-            positions: torch.Tensor, cache: dict | None = None):
+            positions: torch.Tensor, cache: dict | None = None, *,
+            remat: bool = False):
     """Every block over x (B, S, D) → (x, the layers' summed MoE aux loss
     float32); with a ``cache`` (prefill), each attention block's k and v
-    and each recurrent layer's final state are written into it."""
+    and each recurrent layer's final state are written into it.  With
+    ``remat`` (training), the blocks the reference's ``_trunk``
+    checkpoints run under ``torch.utils.checkpoint``."""
     s = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kv = cache is not None
     k_buf, v_buf = _kv_bufs(cfg, cache)
 
-    def attn(layer, x, i):
+    def run(fn, *args):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def attn(layer, x, i, rematted):
         nonlocal aux
-        out = _layer(cfg, layer, x, positions, return_kv=kv)
+        if rematted and not kv:
+            out = run(_layer, cfg, layer, x, positions)
+        else:
+            out = _layer(cfg, layer, x, positions, return_kv=kv)
         if out[1] is not None:
             aux = aux + out[1]
         if kv:
@@ -289,22 +323,26 @@ def _blocks(cfg: ModelConfig, model: LM, x: torch.Tensor,
 
     if cfg.block_pattern == "attn":
         for i, layer in enumerate(model.layers):
-            x = attn(layer, x, i)
+            x = attn(layer, x, i, True)
     elif cfg.block_pattern == "zamba":
         for gi, group in enumerate(model.mamba_groups):
             for li, layer in enumerate(group):
-                x = _mamba(cfg, layer, x, cache, ("ssm", "conv"), (gi, li))
-            x = attn(model.shared_attn, x, gi)
+                x = run(_mamba, cfg, layer, x, cache, ("ssm", "conv"),
+                        (gi, li))
+            x = attn(model.shared_attn, x, gi, False)
         for ti, layer in enumerate(model.mamba_tail):
-            x = _mamba(cfg, layer, x, cache, ("ssm_tail", "conv_tail"), ti)
+            x = run(_mamba, cfg, layer, x, cache, ("ssm_tail", "conv_tail"),
+                    ti)
     else:                                   # xlstm
         for gi, (group, slayer) in enumerate(zip(model.mlstm, model.slstm)):
             for li, layer in enumerate(group):
-                y, st = xlstm.mlstm_block(layer.mlstm, layer.ln(x),
-                                          num_heads=cfg.num_heads)
-                x = x + y
                 if kv:
+                    y, st = xlstm.mlstm_block(layer.mlstm, layer.ln(x),
+                                              num_heads=cfg.num_heads)
                     cache["mlstm"][gi, li] = st
+                    x = x + y
+                else:
+                    x = run(_mlstm, cfg, layer, x)
             y, carry = xlstm.slstm_block(slayer.slstm, slayer.ln(x),
                                          num_heads=cfg.num_heads)
             x = x + y
@@ -312,6 +350,13 @@ def _blocks(cfg: ModelConfig, model: LM, x: torch.Tensor,
                 for buf, val in zip(cache["slstm"], carry):
                     buf[gi] = val
     return x, aux
+
+
+def _mlstm(cfg: ModelConfig, layer: MLSTMLayer, x: torch.Tensor
+           ) -> torch.Tensor:
+    """One mLSTM layer with its residual over the whole sequence."""
+    return x + xlstm.mlstm_block(layer.mlstm, layer.ln(x),
+                                 num_heads=cfg.num_heads)[0]
 
 
 def _kv_bufs(cfg: ModelConfig, cache: dict | None):
@@ -324,21 +369,39 @@ def _kv_bufs(cfg: ModelConfig, cache: dict | None):
     return cache["k"], cache["v"]
 
 
-def forward(cfg: ModelConfig, model: LM, batch: dict
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ModelConfig, model: LM, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """→ (logits (B, S, V) float32, the layers' summed MoE auxiliary loss,
     float32: 0 without experts).  ``batch["tokens"]`` (B, S) ints, or
     ``batch["embeddings"]`` (B, S, D) for ``input_mode="embeddings"``."""
     _check_supported(cfg)
     x = _embed(cfg, model, _batch_inputs(cfg, batch))
     b, s = x.shape[:2]
-    x, aux = _blocks(cfg, model, x, _positions(b, s, x.device))
+    x, aux = _blocks(cfg, model, x, _positions(b, s, x.device), remat=remat)
     return _logits(cfg, model, x), aux
+
+
+def loss_fn(cfg: ModelConfig, model: LM, batch: dict, *,
+            remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """Training loss with streamed (never materialised) logits: (ce +
+    ``MOE_AUX_COEF`` · moe_aux, {"ce", "moe_aux"}), float32 scalars.
+    ``batch`` as :func:`forward` takes it, plus ``batch["labels"]`` (B, S)
+    ints."""
+    _check_supported(cfg)
+    x = _embed(cfg, model, _batch_inputs(cfg, batch))
+    b, s = x.shape[:2]
+    x, aux = _blocks(cfg, model, x, _positions(b, s, x.device), remat=remat)
+    x = model.final_ln(x)
+    labels = torch.as_tensor(batch["labels"], device=x.device)
+    ce = chunked_cross_entropy(model.output_head(), x, labels,
+                               true_vocab=cfg.vocab_size)
+    return ce + MOE_AUX_COEF * aux, {"ce": ce, "moe_aux": aux}
 
 
 # ======================================================================
 # prefill (serve) path: forward + cache construction
 # ======================================================================
+@torch.no_grad()
 def prefill(cfg: ModelConfig, model: LM, batch: dict, max_len: int, *,
             last_only: bool = False) -> tuple[torch.Tensor, dict]:
     """Run the prompt through the model: (logits (B, S, V) float32, decode
@@ -426,6 +489,7 @@ def _mamba_decode(cfg: ModelConfig, layer: MambaLayer, x: torch.Tensor,
     return x + y
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, model: LM, cache: dict, inputs,
                 pos: int) -> tuple[torch.Tensor, dict]:
     """One-token decode.  ``inputs`` (B,) tokens, or (B, D) embeddings
@@ -507,5 +571,5 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     return n
 
 
-__all__ = ["LM", "decode_step", "forward", "init_cache", "init_params",
-           "param_count", "prefill"]
+__all__ = ["LM", "MOE_AUX_COEF", "decode_step", "forward", "init_cache",
+           "init_params", "loss_fn", "param_count", "param_specs", "prefill"]

@@ -40,7 +40,7 @@ def world(arch: str, dtype: str):
 
 def np32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 

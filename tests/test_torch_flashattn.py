@@ -24,6 +24,7 @@ tolerance the card's check uses is shown to follow from the rounding.
 import importlib.util
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -206,3 +207,161 @@ def test_bf16_kernel_rounding_within_stated_tolerance(bkv, g, s, t, hd,
                + vtol * vmax[:, None, None])
         assert (np.abs(got - want) <= tol).all(), float(
             np.abs(got - want).max())
+
+
+# ----------------------------------------------------------------------
+# The backward: ``flashattn_bwd_plain`` (the CUDA backward's plain twin)
+# against ``jax.vjp`` of the reference's flash attention (its custom VJP,
+# ``_flash_bwd``) and of its naive oracle; ``FlashAttention`` on the CPU.
+# ----------------------------------------------------------------------
+#: The reference's own bound for its flash gradients against the naive
+#: ones (``tests/test_models.py::test_flash_gradients_match_naive``).
+GRAD_ATOL = 2e-4
+
+
+def _to_kernel_layout(q, k, v, do):
+    """(B, S, KVH, G, hd) / (B, T, KVH, hd) numpy → the kernel's (BH, S,
+    hd) / (BKV, T, hd) torch layout."""
+    b, s, kvh, g, hd = q.shape
+    t = k.shape[1]
+    qf = torch.from_numpy(q).permute(0, 2, 3, 1, 4).reshape(b * kvh * g, s,
+                                                             hd)
+    kf, vf = (torch.from_numpy(x).permute(0, 2, 1, 3).reshape(b * kvh, t, hd)
+              for x in (k, v))
+    dof = torch.from_numpy(do).permute(0, 2, 3, 1, 4).reshape(
+        b * kvh * g, s, hd)
+    return [x.contiguous() for x in (qf, kf, vf, dof)]
+
+
+def _from_kernel_layout(dq, dk, dv, shape_q, shape_k):
+    b, s, kvh, g, hd = shape_q
+    t = shape_k[1]
+    return (dq.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4).numpy(),
+            dk.reshape(b, kvh, t, hd).permute(0, 2, 1, 3).numpy(),
+            dv.reshape(b, kvh, t, hd).permute(0, 2, 1, 3).numpy())
+
+
+@pytest.mark.parametrize("b,s,t,kvh,g,hd", [
+    (2, 13, 29, 2, 3, 16),          # ragged, windowed, g 3
+    (1, 70, 130, 1, 1, 32),         # several KV blocks, g 1
+    (2, 45, 45, 2, 1, 64),
+    (1, 20, 77, 1, 3, 112),
+])
+def test_bwd_plain_matches_reference_vjp(b, s, t, kvh, g, hd):
+    from repro.models.attention import (chunked_causal_attention,
+                                        naive_causal_attention)
+    from repro_torch.kernels.flashattn import (flashattn_bwd_plain,
+                                               flashattn_fwd_plain)
+    rng = np.random.default_rng(s * 31 + t)
+    q = rng.normal(size=(b, s, kvh, g, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(b, t, kvh, hd)).astype(np.float32)
+            for _ in range(2))
+    do = rng.normal(size=q.shape).astype(np.float32)
+    qf, kf, vf, dof = _to_kernel_layout(q, k, v, do)
+    o, lse = flashattn_fwd_plain(qf, kf, vf, g=g)
+    got = _from_kernel_layout(*flashattn_bwd_plain(qf, kf, vf, o, lse, dof,
+                                                   g=g), q.shape, k.shape)
+    for fn in (lambda q, k, v: chunked_causal_attention(q, k, v, 32),
+               naive_causal_attention):
+        _, vjp = jax.vjp(fn, q, k, v)
+        for a, w in zip(got, vjp(do)):
+            np.testing.assert_allclose(a, np.asarray(w), atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("s,t,g", [(16, 16, 1), (7, 29, 2)])
+def test_fwd_plain_lse_matches_reference(s, t, g):
+    """The plain forward's lse is the reference's ``_flash_fwd_loop``
+    residual m + log(max(l, 1e-30))."""
+    from repro.models.attention import _flash_fwd_loop
+    from repro_torch.kernels.flashattn import flashattn_fwd_plain
+    rng = np.random.default_rng(t)
+    q = rng.normal(size=(2, s, 2, g, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, t, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    _, want = _flash_fwd_loop(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              8)
+    qf, kf, vf, _ = _to_kernel_layout(q, k, v, q)
+    _, lse = flashattn_fwd_plain(qf, kf, vf, g=g)
+    assert lse.dtype == torch.float32 and lse.shape == (2 * 2 * g, s)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want).reshape(-1, s),
+                               atol=F32_ATOL)
+
+
+def test_flash_attention_function_on_cpu_is_the_plain_pair():
+    from repro_torch.kernels.flashattn import (FlashAttention,
+                                               flashattn_bwd_plain,
+                                               flashattn_fwd_plain)
+    rng = np.random.default_rng(11)
+    q, k, v = _torch(*_inputs(rng, 2, 3, 17, 40, 32))
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    before = {n: dt.LAUNCHES[n] for n in dt.LAUNCHES}
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = FlashAttention.apply(*leaves, 3)
+    o, lse = flashattn_fwd_plain(q, k, v, g=3)
+    assert torch.equal(out.detach(), o)
+    out.backward(do)
+    for got, want in zip(leaves, flashattn_bwd_plain(q, k, v, o, lse, do,
+                                                     g=3)):
+        assert torch.equal(got.grad, want)
+    assert dict(dt.LAUNCHES) == before
+
+
+def test_flash_attention_directional_derivatives():
+    """``FlashAttention``'s gradient against central differences of its
+    forward at float32: ⟨∇f, u⟩ for f = Σ o · w and a random direction
+    u, step 1e-2 (the difference quotient's error is O(1e-4) relative
+    from the third derivative and ~1e-5 from float32 rounding), held to
+    2e-3 relative."""
+    from repro_torch.kernels.flashattn import FlashAttention, flashattn_plain
+    rng = np.random.default_rng(12)
+    q, k, v = _torch(*_inputs(rng, 1, 2, 9, 21, 16))
+    w = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    (FlashAttention.apply(*leaves, 2) * w).sum().backward()
+    eps = 1e-2
+    for i in range(3):
+        u = [torch.zeros_like(x) for x in (q, k, v)]
+        u[i] = torch.from_numpy(rng.normal(size=u[i].shape).astype(
+            np.float32))
+        plus = [x + eps * d for x, d in zip((q, k, v), u)]
+        minus = [x - eps * d for x, d in zip((q, k, v), u)]
+        fd = float(((flashattn_plain(*plus, g=2) - flashattn_plain(
+            *minus, g=2)) * w).sum()) / (2 * eps)
+        an = float((leaves[i].grad * u[i]).sum())
+        assert abs(fd - an) <= 2e-3 * max(abs(an), 1.0), (i, fd, an)
+
+
+def test_bwd_refuses_bad_residuals():
+    from repro_torch.kernels.flashattn import flashattn_bwd
+    rng = np.random.default_rng(0)
+    q, k, v = _torch(*_inputs(rng, 1, 2, 8, 8, 16))
+    lse = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="lse"):
+        flashattn_bwd(q, k, v, q, lse.double(), q, g=2)
+    with pytest.raises(ValueError, match="lse"):
+        flashattn_bwd(q, k, v, q, lse[:, :4], q, g=2)
+    with pytest.raises(ValueError, match="o and do"):
+        flashattn_bwd(q, k, v, q[:, :4], lse, q, g=2)
+    with pytest.raises(ValueError, match="head dim"):
+        q8, k8, v8 = _torch(*_inputs(rng, 1, 2, 8, 8, 8))
+        flashattn_bwd(q8, k8, v8, q8, lse, q8, g=2)
+
+
+def test_attention_uses_flash_function_only_for_gradients(monkeypatch):
+    """``chunked_causal_attention`` calls the serving kernel (no lse)
+    unless a gradient is wanted, then ``FlashAttention``."""
+    from repro_torch.models import attention
+    calls = []
+    real_fn, real_apply = attention.flashattn, attention.FlashAttention.apply
+    monkeypatch.setattr(attention, "flashattn", lambda *a, **kw: (
+        calls.append("serve"), real_fn(*a, **kw))[1])
+    monkeypatch.setattr(attention.FlashAttention, "apply", lambda *a: (
+        calls.append("grad"), real_apply(*a))[1])
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(1, 5, 2, 2, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 5, 2, 16)).astype(np.float32))
+    attention.chunked_causal_attention(q, k, k)
+    attention.chunked_causal_attention(q.requires_grad_(), k, k)
+    with torch.no_grad():
+        attention.chunked_causal_attention(q, k, k)
+    assert calls == ["serve", "grad", "serve"]

@@ -1,6 +1,6 @@
 """The port stands alone: ``repro_torch`` loads neither ``jax`` nor the
-reference package, and no source of it (nor ``chip_smoke.py`` or
-``chip_compare.py``) imports either.  Also pins the device rule: a CUDA
+reference package, and no source of it (nor ``chip_smoke.py``,
+``chip_compare.py`` or ``chip_train_sweep.py``) imports either.  Also pins the device rule: a CUDA
 request without CUDA raises."""
 import ast
 import os
@@ -50,7 +50,10 @@ def test_port_has_modules():
             "repro_torch.lint.config", "repro_torch.lint.sentinel",
             "repro_torch.lint.rules", "repro_torch.lint.rules.sync",
             "repro_torch.lint.rules.kern", "repro_torch.lint.rules.dead",
-            "repro_torch.lint.rules.fault"} <= names
+            "repro_torch.lint.rules.fault", "repro_torch.data.tokens",
+            "repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.step", "repro_torch.train.checkpoint",
+            "repro_torch.train.compress"} <= names
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -68,8 +71,28 @@ def test_import_loads_neither_jax_nor_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_training_modules_leave_jax_and_repro_out():
+    """The training slice alone (the token pipeline and ``train/``, with
+    the models they import) loads neither package."""
+    mods = ["repro_torch.data.tokens", "repro_torch.train.optimizer",
+            "repro_torch.train.step", "repro_torch.train.checkpoint",
+            "repro_torch.train.compress"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"],
+    "path", PORT_FILES + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
+                          ROOT / "chip_train_sweep.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -101,9 +124,11 @@ def _entry_points():
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import distthresh as dt
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flashattn import flashattn
-    from repro_torch.models import transformer
+    from repro_torch.kernels.flashattn import flashattn, flashattn_bwd
+    from repro_torch.models import convert, transformer
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import checkpoint
+    from repro_torch.train import step as train_step
 
     cfg = ARCHS["granite-3-2b"].reduced()
     qkv = torch.zeros((2, 4, 16)), torch.zeros((1, 4, 16))
@@ -140,6 +165,15 @@ def _entry_points():
             c_values=(8, 16), q_values=(8, 16), repeats=1),
         "flashattn": lambda: flashattn(qkv[0], qkv[1], qkv[1], g=2,
                                        device="cuda"),
+        "flashattn_bwd": lambda: flashattn_bwd(
+            qkv[0], qkv[1], qkv[1], qkv[0], torch.zeros((2, 4)), qkv[0], g=2,
+            device="cuda"),
+        "init_train_state": lambda: train_step.init_train_state(
+            cfg, generator=torch.Generator()),
+        "train_state_from_jax": lambda: convert.train_state_from_jax(
+            cfg, {}),
+        "checkpoint_restore": lambda: checkpoint.restore(
+            str(ROOT), {}, step=0),
         "init_params": lambda: transformer.init_params(
             cfg, generator=torch.Generator()),
         "LM": lambda: transformer.LM(cfg),

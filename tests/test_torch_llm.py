@@ -89,7 +89,7 @@ def _ref_cfg(arch, dtype):
 
 def _np(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 
@@ -523,6 +523,41 @@ def test_generation_runs_and_is_deterministic():
     s2 = eng.generate(prompts, max_new_tokens=4, temperature=1.0, seed=3)
     assert s1 == s2 and [len(o) for o in s1] == [7, 9]
     assert all(0 <= t < cfg.vocab_size for o in s1 for t in o)
+
+
+def _no_graph(x) -> None:
+    for t in (x if isinstance(x, (tuple, list)) else [x]):
+        if isinstance(t, dict):
+            for v in t.values():
+                _no_graph(v)
+        elif isinstance(t, torch.Tensor):
+            assert not t.requires_grad and t.grad_fn is None
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-7b",
+                                  "xlstm-350m"])
+def test_serving_builds_no_graph(arch, monkeypatch):
+    """The parameters require gradients (the model trains), yet
+    ``prefill``, ``decode_step`` and ``ServeEngine.generate`` build no
+    autograd graph: their outputs and caches carry no ``grad_fn``."""
+    cfg = ARCHS[arch].reduced()
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device=CPU)
+    assert all(p.requires_grad for p in model.parameters())
+    toks = {"tokens": torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]])}
+    logits, cache = T.prefill(cfg, model, toks, max_len=8)
+    _no_graph([logits, cache])
+    step, cache = T.decode_step(cfg, model, cache, torch.tensor([1, 2]), 4)
+    _no_graph([step, cache])
+    seen = []
+    for name in ("prefill", "decode_step"):
+        real = getattr(T, name)
+        monkeypatch.setattr(T, name, lambda *a, _real=real, **kw: (
+            seen.append(_real(*a, **kw)), seen[-1])[1])
+    ServeEngine(cfg, model, max_len=16, device=CPU).generate(
+        PROMPTS[:2], max_new_tokens=3)
+    assert len(seen) == 4
+    _no_graph(seen)
 
 
 def test_generate_refuses_embedding_inputs():

@@ -102,7 +102,7 @@ def test_moe_apply_matches_reference(arch, dtype, capacity_factor):
                                          capacity_factor)
     assert y.dtype == xt.dtype and tuple(y.shape) == want_y.shape
     assert aux.dtype == torch.float32
-    np.testing.assert_allclose(y.float().numpy(),
+    np.testing.assert_allclose(y.detach().float().numpy(),
                                np.asarray(want_y, np.float32), **TOL[dtype])
     assert abs(float(aux) - float(want_aux)) <= 1e-6
 
@@ -122,7 +122,7 @@ def test_ties_route_to_the_lower_expert_first(dtype):
                                     **_kw(cfg, 1.25))
     assert experts[3].tolist() == list(range(k))
     (y, aux), (want_y, want_aux) = _both(cfg, params, model, xt, xj, 1.25)
-    np.testing.assert_allclose(y.float().numpy(),
+    np.testing.assert_allclose(y.detach().float().numpy(),
                                np.asarray(want_y, np.float32), **TOL[dtype])
     assert abs(float(aux) - float(want_aux)) <= 1e-6
 
@@ -142,7 +142,7 @@ def test_ties_route_to_the_lower_expert_first(dtype):
         assert 1 in r and (2 not in r or r.index(1) < r.index(2)), r
     y, aux = moe.moe_apply(tied, xt, **_kw(cfg, 1.25))
     want_y, want_aux = rmoe.moe_apply(ref, xj, **_kw(cfg, 1.25))
-    np.testing.assert_allclose(y.float().numpy(),
+    np.testing.assert_allclose(y.detach().float().numpy(),
                                np.asarray(want_y, np.float32), **TOL[dtype])
     assert abs(float(aux) - float(want_aux)) <= 1e-6
 
@@ -253,10 +253,10 @@ def test_prefill_decode_match_forward(arch):
     logits_f, _ = T.forward(cfg, model, {"tokens": torch.from_numpy(toks)})
     logits_p, cache = T.prefill(cfg, model, {"tokens": torch.from_numpy(toks)},
                                 max_len=16)
-    np.testing.assert_allclose(logits_p.numpy(), logits_f.numpy(), atol=3e-2)
+    np.testing.assert_allclose(logits_p.numpy(), logits_f.detach().numpy(), atol=3e-2)
     nxt = logits_p[:, -1].argmax(-1)
     lg_dec, _ = T.decode_step(cfg, model, cache, nxt, 12)
     toks2 = np.concatenate([toks, nxt.numpy()[:, None]], 1)
     lg_full, _ = T.forward(cfg, model, {"tokens": torch.from_numpy(toks2)})
-    np.testing.assert_allclose(lg_dec.numpy(), lg_full[:, -1].numpy(),
+    np.testing.assert_allclose(lg_dec.numpy(), lg_full[:, -1].detach().numpy(),
                                atol=3e-2)

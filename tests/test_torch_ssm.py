@@ -215,3 +215,27 @@ def test_mamba2_init_state_and_param_count_equal_reference(dtype):
                      device="meta")
     assert sum(p.numel() for p in mod.parameters()) == \
         ssm.mamba2_param_count(cfg.d_model, cfg.ssm_state)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_gradient_equals_reference(dtype):
+    """``ssm.silu``'s gradient is ``jax.nn.silu``'s, also below x ≈ −88,
+    where exp(−x) overflows: autograd through the forward's own steps
+    gave NaN there (0 · inf), the reference 0.  Values and gradients
+    agree to within one rounding of the dtype (bf16: exactly, as
+    measured); denormals count as 0 (XLA flushes them)."""
+    v = np.array([-100.0, -88.5, -50.0, -3.0, 0.0, 0.7, 3.0, 100.0],
+                 np.float32)
+    x = torch.from_numpy(v).to(getattr(torch, dtype)).requires_grad_()
+    y = ssm.silu(x)
+    y.backward(torch.ones_like(y))
+    jx = jnp.asarray(v, jnp.dtype(dtype))
+    want_y = np.asarray(jax.nn.silu(jx), np.float32)
+    want_g = np.asarray(jax.grad(lambda a: jnp.sum(jax.nn.silu(a)))(jx),
+                        np.float32)
+    got_g = x.grad.float().numpy()
+    assert np.isfinite(got_g).all()
+    tol = dict(rtol=1e-6, atol=1e-30) if dtype == "float32" else dict(
+        rtol=0, atol=1e-30)
+    np.testing.assert_allclose(y.detach().float().numpy(), want_y, **tol)
+    np.testing.assert_allclose(got_g, want_g, **tol)
