@@ -12,8 +12,10 @@ Phases, each printing one JSON line (``"phase": ...``):
 2. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu`` (one
    compile per source, all at once; ``ptxas`` registers and spills), and
    ``cuobjdump -sass`` counts each kernel's ``HGMMA`` and ``UTMALDG``
-   instructions (every bf16 flash instantiation must have both; null
-   where the toolkit has no ``cuobjdump``).
+   instructions (every bf16 flash instantiation, the forward's and the
+   backward's dK/dV and dQ kernels, must have both; null where the
+   toolkit has no ``cuobjdump``); the backward instantiations' registers
+   and spills are printed apart (none may spill at hd 64).
    Then phase lint: ``python -m repro_torch.lint src/repro_torch
    --format=json`` must report 0 errors, KERN101 reading the very ``.cu``
    sources just built (each ``extern "C"`` function matched to its
@@ -27,8 +29,10 @@ Phases, each printing one JSON line (``"phase": ...``):
    flash backward (``BWD_TOL``) against the plain backward on the kernel
    forward's o and lse, at the same head dims, g, lengths and dtypes and
    at granite-3-2b's training shape (BH 256, g 4, S = T = 1,024, hd 64,
-   bf16); the forward's lse against the plain loop's (``LSE_ATOL``); a
-   second backward call bit-identical.  The
+   bf16); the worst |diff| / tolerance per dtype; the forward's lse
+   against the plain loop's (``LSE_ATOL``); a second backward call
+   bit-identical; a bf16 ``do`` that starts 2 bytes past an aligned
+   address refused with ``ValueError`` (the TMA copies).  The
    distance kernels: on seeded random tiles with the degenerate cases
    (zero-length extent, zero relative velocity, tangent roots, disjoint
    intervals), at 256×256,
@@ -729,8 +733,9 @@ def flash_checks(dev) -> dict:
 TRAIN_FLASH = (64, 4, 1024, 64)
 
 
-def bwd_close(a, b, dtype, what: str) -> float:
-    """Max |a - b| of one gradient, after checking ``BWD_TOL``."""
+def bwd_close(a, b, dtype, what: str) -> tuple[float, float]:
+    """(max |a - b|, max |a - b| / tolerance) of one gradient, after
+    checking ``BWD_TOL``."""
     rtol, frac = BWD_TOL[dtype]
     a, b = a.float(), b.float()
     diff = (a - b).abs()
@@ -739,7 +744,7 @@ def bwd_close(a, b, dtype, what: str) -> float:
     check((diff <= tol).all().item(),
           f"flashattn_bwd {dtype} {what}: max |diff| {float(diff.max())}, "
           f"max |plain| {float(b.abs().max())}")
-    return float(diff.max())
+    return float(diff.max()), float((diff / tol).max())
 
 
 def flash_bwd_checks(dev) -> dict:
@@ -748,10 +753,12 @@ def flash_bwd_checks(dev) -> dict:
     head dim, g 1 and 4, S = T = 77 and 1,000, S = 45 < T = 333, float32
     and bf16, and bf16 at granite-3-2b's training shape.  Both backwards
     take the kernel forward's o and lse; a second call must give the same
-    bits."""
+    bits; the worst |diff| / tolerance shows each dtype's margin.  Then a
+    bf16 ``do`` view 2 bytes past an aligned start must be refused."""
     from repro_torch.kernels import flashattn as fa
     gen = torch.Generator(device=dev).manual_seed(2027)
     err = {str(dt): 0.0 for dt in BWD_TOL}
+    ratio = {str(dt): 0.0 for dt in BWD_TOL}
     lse_err = 0.0
     cases = 0
 
@@ -771,8 +778,9 @@ def flash_bwd_checks(dev) -> dict:
         for a, b, what, x in zip(got, want, ("dq", "dk", "dv"), (q, k, v)):
             check(a.dtype == dtype and a.shape == x.shape,
                   f"flashattn_bwd {what}: dtype or shape")
-            err[str(dtype)] = max(err[str(dtype)],
-                                  bwd_close(a, b, dtype, what))
+            e, r = bwd_close(a, b, dtype, what)
+            err[str(dtype)] = max(err[str(dtype)], e)
+            ratio[str(dtype)] = max(ratio[str(dtype)], r)
         again = fa.flashattn_bwd(q, k, v, o, lse, do, g=g)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"flashattn_bwd {dtype} hd {hd} g {g}: a second call "
@@ -788,10 +796,35 @@ def flash_bwd_checks(dev) -> dict:
     case(torch.bfloat16, bkv, g, s, s, hd)
     cases += 1
     torch.cuda.synchronize()
+    misaligned = misaligned_bwd_refused(dev)
     return {"cases": cases, "max_abs_err": max(err.values()),
-            "max_abs_err_by_dtype": err, "lse_max_abs_err": lse_err,
-            "lse_atol": LSE_ATOL, "repeat_bit_identical": True,
+            "max_abs_err_by_dtype": err, "max_diff_over_tol_by_dtype": ratio,
+            "lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL,
+            "repeat_bit_identical": True, "misaligned_refused": misaligned,
             "tol": {str(k): v for k, v in BWD_TOL.items()}}
+
+
+def misaligned_bwd_refused(dev) -> str:
+    """The bf16 backward on a ``do`` that is a contiguous view starting 2
+    bytes past an aligned address (as ``do.contiguous()`` of an offset
+    view is): the wrapper must raise ``ValueError`` before any launch.
+    Returns the error's message."""
+    from repro_torch.kernels import flashattn as fa
+    from repro_torch.kernels._launch import LAUNCHES
+    q, k, v = (torch.randn((2, 77, 64), device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    o, lse = fa.flashattn_fwd(q, k, v, g=1)
+    do = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)[1:]
+    do = do.view(q.shape).copy_(q)
+    check(do.is_contiguous() and do.data_ptr() % 16 == 2,
+          "the misaligned view is not what the check needs")
+    before = dict(LAUNCHES)
+    try:
+        fa.flashattn_bwd(q, k, v, o, lse, do, g=1)
+    except ValueError as e:
+        check(LAUNCHES == before, "a refused backward counted a launch")
+        return str(e)
+    raise AssertionError("flashattn_bwd took a misaligned bf16 do")
 
 
 # ----------------------------------------------------------------------
@@ -3082,11 +3115,41 @@ def flash_timing(dev, shape, n_launches, dtype=None):
             "bound_by": b_by, "library_ms": library_ms}
 
 
+#: The bf16 backward's kernels, as the profiler and ptxas name them, by
+#: their ``LAUNCHES`` names.
+BWD_BF16_KERNELS = {"flashattn_bwd_delta": "flashattn_bwd_delta_kernel",
+                    "flashattn_bwd_dkdv": "flashattn_bwd_dkdv_wgmma_kernel",
+                    "flashattn_bwd_dq": "flashattn_bwd_dq_wgmma_kernel"}
+
+
+def bwd_ptxas(log: str) -> dict:
+    """Registers and spills of every flash backward instantiation, from
+    the flashattn.cu compile's ``ptxas -v``, by short name; fails if a
+    bf16 backward kernel spills at hd 64 (granite's training shape)."""
+    out = {}
+    for raw, info in ptxas_summary(log).items():
+        m = re.search(r"\d+(flashattn_bwd\w*?_kernel)I(?:Li(\d+)E)?"
+                      r"(f|13__nv_bfloat16)?", raw)
+        if not m:
+            continue
+        arg = m.group(2) or ("float" if m.group(3) == "f" else "bf16")
+        if m.group(2) and m.group(3):
+            arg += ", float"
+        out[f"{m.group(1)}<{arg}>"] = info
+    for name in ("flashattn_bwd_dkdv_wgmma_kernel<64>",
+                 "flashattn_bwd_dq_wgmma_kernel<64>"):
+        check(name in out, f"ptxas reported no {name}")
+        check(" 0 bytes spill stores" in " " + out[name],
+              f"{name} spills: {out[name]}")
+    return out
+
+
 def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
     """The flash backward at granite-3-2b's training shape
     (``TRAIN_FLASH``, bf16, seeded normal inputs, the kernel forward's o
-    and lse): the three kernels (one wrapper call), the plain backward,
-    and the backward of ``scaled_dot_product_attention(is_causal=True,
+    and lse): the three kernels (one wrapper call, and each kernel's
+    device time per launch under the profiler), the plain backward, and
+    the backward of ``scaled_dot_product_attention(is_causal=True,
     enable_gqa=True)`` on the same tensors (the yardstick only; the port
     never calls it), with the bound of the work."""
     import torch.nn.functional as F
@@ -3103,7 +3166,7 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
     o, lse = fa.flashattn_fwd(q, k, v, g=g)
     got = fa.flashattn_bwd(q, k, v, o, lse, do, g=g)
     want = fa.flashattn_bwd_plain(q, k, v, o, lse, do, g=g)
-    err = max(bwd_close(a, b, dtype, w)
+    err = max(bwd_close(a, b, dtype, w)[0]
               for a, b, w in zip(got, want, ("dq", "dk", "dv")))
     # SDPA's layout: (batch, heads, S, hd), the kernel's bh = (b·KVH +
     # kvh)·g + j being head kvh·g + j of batch b; S = T, so its is_causal
@@ -3129,6 +3192,21 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
     plain_ms = event_ms(lambda: fa.flashattn_bwd_plain(q, k, v, o, lse, do,
                                                        g=g))
     library_ms = event_ms(library, iters=20)
+    # Each kernel's device time per launch, averaged over the launches
+    # the profiler recorded in 20 wrapper calls (on an H100 it has kept
+    # as few as 11 of 20 delta launches).
+    n_calls = 20
+    _, _, _, _, top = profiled(lambda: [
+        fa.flashattn_bwd(q, k, v, o, lse, do, g=g) for _ in range(n_calls)],
+        by=lambda name: next((n for n, kern in BWD_BF16_KERNELS.items()
+                              if kern in name), None))
+    kernel_ms, profiled_launches = {}, {}
+    for name in BWD_BF16_KERNELS:
+        rec = top["by_kind"].get(name, {"n": 0, "us": 0.0})
+        check(1 <= rec["n"] <= n_calls,
+              f"profiler: {rec['n']} {name} launches in {n_calls} calls")
+        kernel_ms[name] = rec["us"] * 1e-3 / rec["n"]
+        profiled_launches[name] = rec["n"]
     # Five products of 2·hd flops per (row, key) pair the causal mask
     # keeps (scores, dO·Vᵀ, dV, dQ, dK), bf16 at the tensor cores' peak;
     # q, k, v, o, do and lse read and dq, dk and dv written once.
@@ -3145,13 +3223,19 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
             "launches": launches["flashattn_bwd_dkdv"],
             "launches_by_kernel": {n: launches[n] for n in fa.BWD_KERNELS},
             "launches_counted_on": counted_on,
+            "kernels": {n: f"{k}<{hd}>" if "wgmma" in k else f"{k}<bf16>"
+                        for n, k in BWD_BF16_KERNELS.items()},
+            "kernel_ms": kernel_ms,
+            "kernel_ms_over_launches": profiled_launches,
             "shape": {"bh": bh, "bkv": bkv, "s": s, "t": t, "hd": hd,
                       "dtype": str(dtype)},
             "max_abs_err": err, "library_max_rel_err": lib_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention backward "
-                       "(enable_gqa), CUDA events"}
+                       "(enable_gqa), CUDA events",
+            "note": "ms: one wrapper call (three launches), CUDA graph; "
+                    "kernel_ms: device time per launch, torch.profiler"}
 
 
 def main() -> int:
@@ -3177,14 +3261,17 @@ def main() -> int:
     if sass is not None:
         from repro_torch.kernels.flashattn import HEAD_DIMS
         wg = {k: v for k, v in sass.items() if "wgmma" in k}
-        check(len(wg) == len(HEAD_DIMS) and all(v["HGMMA"] and v["UTMALDG"]
-                                   for v in wg.values()),
+        # The forward and the backward's dK/dV and dQ kernels, per hd.
+        check(len(wg) == 3 * len(HEAD_DIMS) and all(
+            v["HGMMA"] and v["UTMALDG"] for v in wg.values()),
               f"bf16 flash kernels without HGMMA or UTMALDG: {wg}")
     emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": _build.build_seconds,
           "built": [*REPLACES, *BWD_KERNELS], "ptxas": {
               src: ptxas_summary(log)
               for src, log in _build.build_log.items()},
+          "ptxas_flash_bwd": bwd_ptxas(_build.build_log["flashattn.cu"])
+          if _build.build_log else "null: the library came from the cache",
           "sass": sass if sass is not None else
           "null: the toolkit has no cuobjdump"})
 

@@ -1,4 +1,5 @@
-// Causal GQA flash-attention forward for Hopper (sm_90a): two kernels.
+// Causal GQA flash attention for Hopper (sm_90a): two forward kernels,
+// then the backward's (below).
 //
 // Both replace the reference's Pallas TPU kernel `flashattn_pallas`
 // (src/repro/kernels/flashattn.py, body `_flash_kernel`): the prefill
@@ -93,33 +94,75 @@
 // wgmma kernel converts its log2-domain m by ln 2), the residual the
 // backward recomputes the probabilities from.  Serving passes null.
 //
-// The backward: flashattn_bwd_{delta,dkdv,dq}_kernel, CUDA cores, float32
-// arithmetic, float32 or bf16 in and out, every head dim above, S <= T
-// with queries aligned to the end of the keys.  The reference has no
-// Pallas kernel here: its flash backward is the custom VJP of
-// chunked_causal_attention, jnp (_flash_bwd, src/repro/models/
-// attention.py:175-208), which these kernels compute: delta = rowsum(dO
-// * O); per (query, key) pair the causal mask keeps, p = exp((q * scale)
-// . k - lse), ds = p (dO . v - delta) scale; dV = sum p dO, dK = sum ds q,
-// dQ = sum ds k.  P is recomputed in float32, as the reference does, also
-// where the bf16 forward rounded it to bf16 before its value product.
-// * flashattn_bwd_delta_kernel: one warp per query row.
-// * flashattn_bwd_dkdv_kernel<hd, T>: one block per (KV head, 64-key
-//   tile), four threads per key holding k, v and the dk, dv sums in
-//   registers; the block walks the g query heads of the group and the
-//   query tiles that see its keys, each staged in shared memory (q, dO,
-//   lse, delta).  The GQA sum happens in the block in a fixed order: no
-//   atomics, and two calls give the same bits.
-// * flashattn_bwd_dq_kernel<hd, T>: one block per (query head, 64-row
-//   tile), the forward's layout, over the visible K/V tiles.
+// The backward, every head dim above, S <= T with queries aligned to the
+// end of the keys.  The reference has no Pallas kernel here: its flash
+// backward is the custom VJP of chunked_causal_attention, jnp (_flash_bwd,
+// src/repro/models/attention.py:175-208), which these kernels compute:
+// delta = rowsum(dO * O); per (query, key) pair the causal mask keeps, p =
+// exp((q * scale) . k - lse), ds = p (dO . v - delta) scale; dV = sum p
+// dO, dK = sum ds q, dQ = sum ds k.  P is recomputed in float32 from lse,
+// as the reference does, also where the bf16 forward rounded it to bf16
+// before its value product.  Three launches: delta, dK/dV, dQ.  Neither
+// route falls back to the other, and neither uses atomics: each sum (the
+// GQA sum over a KV head's g query heads, dQ's over key tiles) runs in one
+// block in a fixed order, so two calls give the same bits.
+// * flashattn_bwd_delta_kernel<T>: one warp per query row, both routes.
+//
+// bf16: flashattn_bwd_{dkdv,dq}_wgmma_kernel<hd>, on the tensor cores, the
+// forward's building blocks (Tile<hd>, TMA maps, 64 x 64 wgmma tiles, one
+// warpgroup per block, a kStages = 2 mbarrier ring refilled by one thread;
+// hd 112 on hd 128's tiles, the K-major products stopping after 112
+// columns).
+// * dkdv: one block per (KV head, 64-key tile), tile 0 (the most query
+//   tiles) first.  K and V arrive once by TMA; the block then walks the g
+//   query heads of the group and, for each, the query tiles that see its
+//   keys, Q and dO tiles streaming through the ring, each stage with the
+//   tile's 64 lse and 64 delta floats (copied by the block's 128 threads,
+//   one float each, read an item ahead and stored as the stage is
+//   refilled: a TMA copy of them would start at any row, and rows past S
+//   must read as 0).  Per tile: S^T = K Q^T and dP^T = V dO^T (both
+//   operands K-major in shared memory), P^T = exp2(S^T scale log2(e) -
+//   lse log2(e)) and dS^T = P^T (dP^T - delta) scale in float32
+//   registers, masked on tiles that cross the diagonal or run past S (TMA
+//   zero-fills Q rows past S, but exp of 0 - an unloaded lse is not 0);
+//   then dV += P^T dO and dK += dS^T Q with A from registers and dO or Q
+//   as the MN-major B, as the forward's V.
+// * dq: one block per (query head, 64-row tile), longest rows first, the
+//   forward's layout: Q and dO once, K and V tiles through the ring; S = Q
+//   K^T, dP = dO V^T, P and dS per row from the row's lse and delta in
+//   registers, dQ += dS K (K MN-major).
+// * Rounding: P and dS enter the tensor cores as hi + lo bf16 pairs (hi =
+//   bf16(x), lo = bf16(x - hi), x - hi exact in float32), two wgmma per
+//   product, so about 16 bits of each survive: a single bf16 rounding, as
+//   SDPA's backward does, misses chip_smoke.py's BWD_TOL by tens of times
+//   on seeded normal inputs, the pair passes it at the float32
+//   arithmetic's margin (tests/test_torch_flashattn.py emulates both).
+//   q, k, v and dO are bf16 already, so S and dP are exact products with
+//   float32 sums.  Outputs are rounded once to bf16.
 // * Bound on an H100 SXM: five products of 2 * hd flops per causal pair
 //   (scores, dO V^T, dV, dQ, dK) at the tensor cores' bf16 peak, 0.087
 //   ms at granite-3-2b's training shape (BH 256, S = T = 1024, hd 64, g
-//   4); the kernels run seven products of 2 * hd (scores and dO V^T in
-//   both of the big kernels) on the CUDA cores.
-// * Left on the table: tensor cores, TMA and warp specialisation; each
-//   pair's exp is computed by four threads, and each query row's q and dO
-//   are read from shared memory once per key thread.
+//   4).  The kernels run ten: S and dP in both kernels, and dV, dK and dQ
+//   twice (hi and lo), about 0.17 ms at that peak; the diagonal tiles are
+//   computed whole.
+// * Left on the table: one warpgroup does everything in turn (no producer
+//   warp, no second consumer warpgroup, no overlap of one tile's products
+//   with the next tile's exponentials); S and dP are computed twice, once
+//   per kernel; the last key tiles of the dK/dV grid walk g query tiles,
+//   the first g * S / 64 (no persistent grid to balance them).
+//
+// float32: flashattn_bwd_{dkdv,dq}_kernel<hd, float>, on the CUDA cores
+// in float32 arithmetic (TF32 keeps 10 bits, too few for BWD_TOL's
+// float32 row).
+// * dkdv: one block per (KV head, 64-key tile), four threads per key
+//   holding k, v and the dk, dv sums in registers; the block walks the
+//   group's query heads and tiles as the bf16 kernel does, each staged in
+//   shared memory (q, dO, lse, delta).
+// * dq: one block per (query head, 64-row tile), the forward's layout,
+//   over the visible K/V tiles.
+// * Left on the table: each pair's exp is computed by four threads, and
+//   each query row's q and dO are read from shared memory once per key
+//   thread.
 #include <cuda.h>  // CUtensorMap and its enums; the CUDA driver's entry
                    // point is looked up at run time, so nothing links libcuda
 #include <cuda_bf16.h>
@@ -145,9 +188,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <typename T>
 __device__ __forceinline__ float4 load4(const T* p, float scale) {
@@ -790,8 +830,8 @@ int launch_hd(bool bf16, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------
-// Backward: three kernels on the CUDA cores, float32 arithmetic, f32 or
-// bf16 in and out.
+// Backward: the delta kernel (both routes), then the float32 route's two
+// kernels on the CUDA cores.
 // ---------------------------------------------------------------------
 constexpr int kDeltaRows = 8;                // rows (one warp each) a block
 
@@ -1050,23 +1090,399 @@ flashattn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int HD, typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* lse, const void* dout, void* delta, void* dq,
-               void* dk, void* dv, int bh, int s_len, int t_len, int g,
-               float scale, cudaStream_t stream) {
+// ---------------------------------------------------------------------
+// Backward, bf16: the two tensor-core kernels.
+// ---------------------------------------------------------------------
+
+// Two floats as a hi + lo pair of bf16x2 words: hi = bf16(x), lo =
+// bf16(x - hi); x - hi is exact in float32, so hi + lo keeps about 16
+// bits of x.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// The 32 float32 accumulators of a 64 x 64 wgmma tile as the hi and lo A
+// fragments of the 4 k-steps (16 columns each) of a product over its
+// columns: the accumulator fragment is the A fragment, as in the forward.
+__device__ __forceinline__ void split_frags(const float (&x)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    split_bf16(x[i], x[i + 1], hi[i / 8][(i % 8) / 2], lo[i / 8][(i % 8) / 2]);
+}
+
+// D (64 x 64) = A B^T for two 64-row tiles in shared memory, both K-major
+// (A at `a`, B at `b`), over the first HD columns.
+template <int HD>
+__device__ __forceinline__ void mma_ss_tiles(float (&d)[32], uint32_t a,
+                                             uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma_ss_n64(d, kmajor_desc<HD>(a, kk), kmajor_desc<HD>(b, kk), kk > 0);
+}
+
+// D (64 x kCols) += (hi + lo) B: A a 64 x 64 pair of register fragments,
+// B the 64-row tile at `tile`, MN-major (the forward's V); hi then lo at
+// each k-step, a fixed order.
+template <int HD>
+__device__ __forceinline__ void mma_rs_pair(float* d,
+                                            const uint32_t (&hi)[4][4],
+                                            const uint32_t (&lo)[4][4],
+                                            uint32_t tile) {
+  using G = Tile<HD>;
+  constexpr int kN = HD < 64 ? HD : 64;
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+#pragma unroll
+    for (int b = 0; b < G::kBoxes; ++b) {
+      mma_rs<kN>(d + b * (kN / 2), hi[kk], mnmajor_desc<HD>(tile, b, kk));
+      mma_rs<kN>(d + b * (kN / 2), lo[kk], mnmajor_desc<HD>(tile, b, kk));
+    }
+  }
+}
+
+// Shared memory of the dK/dV kernel: K and V, kStages (Q, dO) pairs, each
+// tile 1024-byte aligned, then kStages rows of kBlockQ lse and kBlockQ
+// delta floats (thread t copies float t of a stage's row).
+template <int HD>
+struct DkdvSmem {
+  static constexpr int kRowFloats = 2 * kBlockQ;
+  static_assert(kRowFloats == kWgThreads, "one row float per thread");
+  static constexpr int kBytes = (2 + 2 * kStages) * Tile<HD>::kBytes +
+                                kStages * kRowFloats * 4 + 1024;
+};
+
+// dK and dV of one KV head's tile of kBlockK keys: the forward's
+// structure with keys as the rows (one warpgroup; thread t holds key rows
+// r0 and r0 + 8 of the 64 x 64 S^T and dP^T tiles, and of dK and dV).
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads)
+flashattn_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int s_len,
+                                int t_len, int g, float scale) {
+  using G = Tile<HD>;
+  __shared__ __align__(8) uint64_t bars[kStages + 1];  // Q/dO stages, K/V
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base, sv = base + G::kBytes;
+  // Stage st: Q at tile 2 + 2 st, dO right after it; its lse and delta
+  // rows after every tile.
+  float* rows = reinterpret_cast<float*>(
+      smem_raw + (base - raw) + (2 + 2 * kStages) * G::kBytes);
+  const uint32_t bar_kv = smem_u32(&bars[kStages]);
+
+  const int kvh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockK;       // tile 0 sees the most queries
+  const int offset = t_len - s_len;          // >= 0, checked by the wrapper
+  // Query rows at positions below the tile's first key see none of it.
+  const int first_qt = max(0, k0 - offset) / kBlockQ;
+  const int per_head = (s_len + kBlockQ - 1) / kBlockQ - first_qt;
+  const int n_items = g * per_head;          // (query head, query tile)s
+  const int tid = threadIdx.x;
+
+  // Item it is query head kvh g + it / per_head, query tile first_qt + it
+  // % per_head.  Its Q and dO tiles come by TMA; its lse and delta rows
+  // (rows past S read as 0) by the threads, one float each.
+  auto load_q = [&](int it, int st) {
+    const int bh = kvh * g + it / per_head;
+    const int i0 = (first_qt + it % per_head) * kBlockQ;
+    const uint32_t bar = smem_u32(&bars[st]);
+    const uint32_t sq = base + (2 + 2 * st) * G::kBytes;
+    mbar_expect_tx(bar, 2 * G::kBytes);
+#pragma unroll
+    for (int b = 0; b < G::kBoxes; ++b) {
+      tma_load(sq + b * G::kBoxBytes, &tq, bar, b * G::kBox, i0, bh);
+      tma_load(sq + G::kBytes + b * G::kBoxBytes, &tdo, bar, b * G::kBox,
+               i0, bh);
+    }
+  };
+  auto row_value = [&](int it) {
+    const int bh = kvh * g + it / per_head;
+    const int qi = (first_qt + it % per_head) * kBlockQ + tid % kBlockQ;
+    const float* src = tid < kBlockQ ? lse : delta;
+    return qi < s_len ? src[static_cast<size_t>(bh) * s_len + qi] : 0.f;
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int it = 0; it < kStages && it < n_items; ++it)
+    rows[it * DkdvSmem<HD>::kRowFloats + tid] = row_value(it);
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * G::kBytes);
+#pragma unroll
+    for (int b = 0; b < G::kBoxes; ++b) {
+      tma_load(sk + b * G::kBoxBytes, &tk, bar_kv, b * G::kBox, k0, kvh);
+      tma_load(sv + b * G::kBoxBytes, &tv, bar_kv, b * G::kBox, k0, kvh);
+    }
+    for (int it = 0; it < kStages && it < n_items; ++it) load_q(it, it);
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);    // this thread's keys: r0, r0 + 8
+  const int c0 = (lane & 3) * 2;             // its first column in each 8
+  const int key0 = k0 + r0;                  // key position of row r0
+  const float scale_log2 = scale * kLog2e;
+  float dka[G::kCols / 2], dva[G::kCols / 2];  // columns past HD stay 0
+#pragma unroll
+  for (int i = 0; i < G::kCols / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_items; ++it) {
+    const int st = it % kStages;
+    const int i0 = (first_qt + it % per_head) * kBlockQ;
+    const uint32_t sq = base + (2 + 2 * st) * G::kBytes;
+    const uint32_t sdo = sq + G::kBytes;
+    const float* lse_s = rows + st * DkdvSmem<HD>::kRowFloats;
+    const float* delta_s = lse_s + kBlockQ;
+    // Item it + kStages's row float, read now, stored after this item.
+    const float next_row =
+        it + kStages < n_items ? row_value(it + kStages) : 0.f;
+    mbar_wait(smem_u32(&bars[st]), (it / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, float32, unscaled.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+    mma_ss_tiles<HD>(s, sk, sq);
+    mma_ss_tiles<HD>(dp, sv, sdo);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T in place.  Element i is key row r0 + 8 ((i / 2) % 2)
+    // and query column 8 (i / 4) + c0 + i % 2 of the tile, whose lse and
+    // delta come from the stage's rows.  Masked: keys after the query's
+    // position (keys past T among them) and query rows past S.
+    const bool edge = k0 + kBlockK - 1 > offset + i0 || i0 + kBlockQ > s_len;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = (i >> 2) * 8 + c0 + (i & 1);
+      const int key = key0 + ((i >> 1) & 1) * 8;
+      float p = 0.f, ds = 0.f;
+      if (!edge || (i0 + col < s_len && key <= offset + i0 + col)) {
+        p = exp2f(fmaf(s[i], scale_log2, -(lse_s[col] * kLog2e)));
+        ds = p * (dp[i] - delta_s[col]) * scale;
+      }
+      s[i] = p;
+      dp[i] = ds;
+    }
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+    split_frags(s, ph, pl);
+    split_frags(dp, dh, dl);
+
+    // dV += P^T dO and dK += dS^T Q.
+    wgmma_fence();
+    mma_rs_pair<HD>(dva, ph, pl, sdo);
+    mma_rs_pair<HD>(dka, dh, dl, sq);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dva);
+    fence_regs(dka);
+
+    // Every warp is done with stage st: refill it with item it + kStages
+    // (the rows are read again only after the next item's barrier).
+    __syncthreads();
+    if (it + kStages < n_items) {
+      rows[st * DkdvSmem<HD>::kRowFloats + tid] = next_row;
+      if (tid == 0) load_q(it + kStages, st);
+    }
+  }
+
+  // Element i lies in column 8 (i / 4) + ..., so i < HD / 2 stores
+  // exactly the columns below HD; keys past T are not stored.
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int kj = key0 + ((i >> 1) & 1) * 8;
+    if (kj < t_len) {
+      const size_t at = (static_cast<size_t>(kvh) * t_len + kj) * HD +
+                        (i >> 2) * 8 + c0;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dka[i], dka[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dva[i], dva[i + 1]);
+    }
+  }
+}
+
+// dQ of one query head's tile of kBlockQ rows: the forward's layout (thread
+// t holds query rows r0 and r0 + 8), over the K/V tiles the causal mask
+// leaves visible, in order.
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads)
+flashattn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int s_len,
+                              int t_len, int g, float scale) {
+  using G = Tile<HD>;
+  __shared__ __align__(8) uint64_t bars[kStages + 1];  // K/V stages, Q/dO
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sdo = base + G::kBytes;
+  const uint32_t bar_q = smem_u32(&bars[kStages]);
+
+  const int bh = blockIdx.x;
+  // The longest causal rows first: they take the most key tiles.
+  const int qtile = gridDim.y - 1 - blockIdx.y;
+  const int kvh = bh / g;
+  const int offset = t_len - s_len;          // >= 0, checked by the wrapper
+  const int last_row = min(s_len, (qtile + 1) * kBlockQ) - 1;
+  const int n_tiles = (offset + last_row) / kBlockK + 1;
+  const int tid = threadIdx.x;
+
+  // Stage st holds K at tile 2 + 2 st and V right after it.
+  auto load_kv = [&](int kt, int st) {
+    const uint32_t bar = smem_u32(&bars[st]);
+    const uint32_t sk = base + (2 + 2 * st) * G::kBytes;
+    mbar_expect_tx(bar, 2 * G::kBytes);
+#pragma unroll
+    for (int b = 0; b < G::kBoxes; ++b) {
+      tma_load(sk + b * G::kBoxBytes, &tk, bar, b * G::kBox, kt * kBlockK,
+               kvh);
+      tma_load(sk + G::kBytes + b * G::kBoxBytes, &tv, bar, b * G::kBox,
+               kt * kBlockK, kvh);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= kStages; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * G::kBytes);
+#pragma unroll
+    for (int b = 0; b < G::kBoxes; ++b) {
+      tma_load(sq + b * G::kBoxBytes, &tq, bar_q, b * G::kBox,
+               qtile * kBlockQ, bh);
+      tma_load(sdo + b * G::kBoxBytes, &tdo, bar_q, b * G::kBox,
+               qtile * kBlockQ, bh);
+    }
+    for (int kt = 0; kt < kStages && kt < n_tiles; ++kt) load_kv(kt, kt);
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);    // this thread's rows: r0, r0 + 8
+  const int c0 = (lane & 3) * 2;             // its first column in each 8
+  const int pos0 = offset + qtile * kBlockQ + r0;  // key position of row r0
+  const int qi0 = qtile * kBlockQ + r0;
+  const float scale_log2 = scale * kLog2e;
+  // Each row's lse (in the log2 domain) and delta; rows past S (zero Q
+  // and dO, not stored) take 0.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qi0 + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * s_len + qi;
+    lse2[h] = qi < s_len ? lse[at] * kLog2e : 0.f;
+    dlt[h] = qi < s_len ? delta[at] : 0.f;
+  }
+  float dqa[G::kCols / 2];                   // columns past HD stay 0
+#pragma unroll
+  for (int i = 0; i < G::kCols / 2; ++i) dqa[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int st = kt % kStages;
+    const uint32_t sk = base + (2 + 2 * st) * G::kBytes;
+    const uint32_t sv = sk + G::kBytes;
+    mbar_wait(smem_u32(&bars[st]), (kt / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T, float32, unscaled.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+    mma_ss_tiles<HD>(s, sq, sk);
+    mma_ss_tiles<HD>(dp, sdo, sv);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS in place of dP; only the tiles that cross the diagonal are
+    // masked (keys past T among them).
+    const int k0 = kt * kBlockK;
+    const bool diag = k0 + kBlockK - 1 > offset + qtile * kBlockQ;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int key = k0 + (i >> 2) * 8 + c0 + (i & 1);
+      float ds = 0.f;
+      if (!diag || key <= pos0 + 8 * h) {
+        const float p = exp2f(fmaf(s[i], scale_log2, -lse2[h]));
+        ds = p * (dp[i] - dlt[h]) * scale;
+      }
+      dp[i] = ds;
+    }
+    uint32_t dh[4][4], dl[4][4];
+    split_frags(dp, dh, dl);
+
+    // dQ += dS K.
+    wgmma_fence();
+    mma_rs_pair<HD>(dqa, dh, dl, sk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dqa);
+
+    // Every warp is done with stage st: refill it with tile kt + kStages.
+    __syncthreads();
+    if (tid == 0 && kt + kStages < n_tiles) load_kv(kt + kStages, st);
+  }
+
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int qi = qi0 + ((i >> 1) & 1) * 8;
+    if (qi < s_len)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dq + (static_cast<size_t>(bh) * s_len + qi) * HD + (i >> 2) * 8 +
+          c0) = __floats2bfloat162_rn(dqa[i], dqa[i + 1]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, void* delta,
+                         int rows, int hd, cudaStream_t stream) {
+  flashattn_bwd_delta_kernel<T><<<(rows + kDeltaRows - 1) / kDeltaRows,
+                                  kDeltaRows * 32, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout),
+      static_cast<float*>(delta), rows, hd);
+  return cudaGetLastError();
+}
+
+// float32: delta, then the CUDA-core dK/dV and dQ kernels.
+template <int HD>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* o, const void* lse, const void* dout,
+                   void* delta, void* dq, void* dk, void* dv, int bh,
+                   int s_len, int t_len, int g, float scale,
+                   cudaStream_t stream) {
+  using T = float;
   const T* tq = static_cast<const T*>(q);
   const T* tk = static_cast<const T*>(k);
   const T* tv = static_cast<const T*>(v);
   const T* tdo = static_cast<const T*>(dout);
   const float* tl = static_cast<const float*>(lse);
   float* td = static_cast<float*>(delta);
-  const int rows = bh * s_len;
-
-  flashattn_bwd_delta_kernel<T><<<(rows + kDeltaRows - 1) / kDeltaRows,
-                                  kDeltaRows * 32, 0, stream>>>(
-      static_cast<const T*>(o), tdo, td, rows, HD);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T>(o, dout, delta, bh * s_len, HD, stream);
   if (err != cudaSuccess) return err;
 
   // Each limit is lifted once per instantiation (and so outside any graph
@@ -1102,15 +1518,68 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd_hd(const void* q, const void* k, const void* v, const void* o,
-                  const void* lse, const void* dout, void* delta, void* dq,
-                  void* dk, void* dv, int bh, int s_len, int t_len, int hd,
-                  int g, float scale, void* stream) {
+// bf16: delta, then the tensor-core dK/dV and dQ kernels, the tensor maps
+// encoded here as launch_bf16 encodes the forward's.
+template <int HD>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* lse, const void* dout,
+                    void* delta, void* dq, void* dk, void* dv, int bh,
+                    int s_len, int t_len, int g, float scale,
+                    cudaStream_t stream) {
+  using G = Tile<HD>;
+  const int rows = bh * s_len;
+  cudaError_t err = launch_delta<__nv_bfloat16>(o, dout, delta, rows, HD,
+                                                stream);
+  if (err != cudaSuccess) return err;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode<HD>(fn, &tq, q, bh, s_len) ||
+      !encode<HD>(fn, &tdo, dout, bh, s_len) ||
+      !encode<HD>(fn, &tk, k, bh / g, t_len) ||
+      !encode<HD>(fn, &tv, v, bh / g, t_len))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  // Each limit is lifted once per instantiation (and so outside any graph
+  // capture after the first call).
+  auto* dkdv = flashattn_bwd_dkdv_wgmma_kernel<HD>;
+  constexpr int dkdv_smem = DkdvSmem<HD>::kBytes;
+  static const cudaError_t dkdv_set = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+  if (dkdv_set != cudaSuccess) return dkdv_set;
+  dkdv<<<dim3(bh / g, (t_len + kBlockK - 1) / kBlockK), kWgThreads,
+         dkdv_smem, stream>>>(tq, tk, tv, tdo,
+                              static_cast<const float*>(lse),
+                              static_cast<const float*>(delta),
+                              static_cast<__nv_bfloat16*>(dk),
+                              static_cast<__nv_bfloat16*>(dv), s_len, t_len,
+                              g, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto* dqk = flashattn_bwd_dq_wgmma_kernel<HD>;
+  constexpr int dq_smem = (2 + 2 * kStages) * G::kBytes + 1024;
+  static const cudaError_t dq_set = cudaFuncSetAttribute(
+      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+  if (dq_set != cudaSuccess) return dq_set;
+  dqk<<<dim3(bh, (s_len + kBlockQ - 1) / kBlockQ), kWgThreads, dq_smem,
+        stream>>>(tq, tk, tv, tdo, static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<__nv_bfloat16*>(dq), s_len, t_len, g, scale);
+  return cudaGetLastError();
+}
+
+int launch_bwd_hd(bool bf16, const void* q, const void* k, const void* v,
+                  const void* o, const void* lse, const void* dout,
+                  void* delta, void* dq, void* dk, void* dv, int bh,
+                  int s_len, int t_len, int hd, int g, float scale,
+                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_BWD(HD)                                                      \
-  launch_bwd<HD, T>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, s_len, \
-                    t_len, g, scale, st)
+#define FLASH_BWD(HD)                                                        \
+  (bf16 ? launch_bwd_bf16<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh, \
+                              s_len, t_len, g, scale, st)                   \
+        : launch_bwd_f32<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh,  \
+                             s_len, t_len, g, scale, st))
   switch (hd) {
     case 16: return FLASH_BWD(16);
     case 32: return FLASH_BWD(32);
@@ -1148,15 +1617,16 @@ extern "C" int flashattn_bf16_launch(const void* q, const void* k,
 
 // The backward of the same attention: q, k, v, o as above, lse float32
 // (bh, s_len) from the forward, dout like o; delta float32 (bh, s_len)
-// scratch; dq like q, dk and dv like k.  Launches the delta, dK/dV and dQ
-// kernels in that order on `stream`; returns the first launch error.
+// scratch; dq like q, dk and dv like k; in bf16 q, k, v and dout 16-byte
+// aligned (the TMA copies).  Launches the delta, dK/dV and dQ kernels in
+// that order on `stream`; returns the first launch error.
 extern "C" int flashattn_bwd_f32_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* delta, void* dq, void* dk,
     void* dv, int bh, int s_len, int t_len, int hd, int g, float scale,
     void* stream) {
-  return launch_bwd_hd<float>(q, k, v, o, lse, dout, delta, dq, dk, dv, bh,
-                              s_len, t_len, hd, g, scale, stream);
+  return launch_bwd_hd(false, q, k, v, o, lse, dout, delta, dq, dk, dv, bh,
+                       s_len, t_len, hd, g, scale, stream);
 }
 
 extern "C" int flashattn_bwd_bf16_launch(
@@ -1164,7 +1634,6 @@ extern "C" int flashattn_bwd_bf16_launch(
     const void* lse, const void* dout, void* delta, void* dq, void* dk,
     void* dv, int bh, int s_len, int t_len, int hd, int g, float scale,
     void* stream) {
-  return launch_bwd_hd<__nv_bfloat16>(q, k, v, o, lse, dout, delta, dq, dk,
-                                      dv, bh, s_len, t_len, hd, g, scale,
-                                      stream);
+  return launch_bwd_hd(true, q, k, v, o, lse, dout, delta, dq, dk, dv, bh,
+                       s_len, t_len, hd, g, scale, stream);
 }

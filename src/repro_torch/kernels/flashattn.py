@@ -25,11 +25,12 @@ Differences from the TPU kernel, none visible in the results:
   has no causal meaning, so ``S > T`` is refused);
 * ``hd`` is one of :data:`HEAD_DIMS` (a template parameter of the kernels),
   f32 or bf16, q, k and v of one dtype; bf16 tensors start 16-byte
-  aligned (TMA's rule; every fresh allocation does).
+  aligned (TMA's rule; every fresh allocation does), and so does the
+  backward's do.
 
 The gradient: :func:`flashattn_fwd` also returns each row's
 log-sum-exp, and :func:`flashattn_bwd` is the hand-written backward (three
-CUDA kernels, ``BWD_KERNELS``; the reference's backward is jnp, the
+CUDA launches, ``BWD_KERNELS``; the reference's backward is jnp, the
 custom VJP ``_flash_bwd`` of ``repro/models/attention.py``, with no
 Pallas kernel).  :class:`FlashAttention` ties them into an
 ``autograd.Function`` that saves (q, k, v, o, lse).  The backward
@@ -38,6 +39,20 @@ reference does, although a bf16 forward rounded them to bf16 before its
 value product.  One difference: delta = rowsum(do · o) reads the output
 in q's dtype, where the reference keeps its float32 output as the
 residual (the same in float32).
+
+The backward's two routes, again by dtype and with no fallback: float32
+runs CUDA-core kernels in float32 arithmetic; bfloat16 runs two
+tensor-core kernels (``wgmma`` fed by TMA, as the forward): dK/dV, one
+block per KV head's 64-key tile walking its group's query heads and
+tiles, and dQ, one block per 64-row query tile walking its key tiles, so
+each sum runs in one block in a fixed order (no atomics: two calls give
+the same bits).  Their scores and dO·vᵀ are exact products of the bf16
+inputs with float32 sums; p and ds enter the value products as hi + lo
+bf16 pairs (``hi = bf16(x)``, ``lo = bf16(x − hi)``, about 16 bits),
+where ``scaled_dot_product_attention``'s backward rounds them to bf16
+once, which would miss ``chip_smoke.py``'s ``BWD_TOL`` by tens of
+times.  The work is ten products of 2·hd flops per causal pair against
+the bound's five (S and dP in both kernels, each value product twice).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (:func:`flashattn_plain`,
@@ -118,6 +133,15 @@ def _contiguous(**xs: torch.Tensor) -> None:
             raise ValueError(f"{what} must be contiguous")
 
 
+def _aligned(**xs: torch.Tensor) -> None:
+    """The bf16 kernels' TMA copies need 16-byte aligned starts."""
+    bad = [what for what, x in xs.items() if x.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"bf16 {', '.join(bad)} must start at 16-byte "
+                         f"aligned addresses (the kernels' TMA copies "
+                         f"need it)")
+
+
 def _forward(q, k, v, g: int, device, *, with_lse: bool):
     _check(q, k, v, g)
     dev = _on(q, device)
@@ -130,9 +154,8 @@ def _forward(q, k, v, g: int, device, *, with_lse: bool):
         raise ValueError(f"S={s} above the kernel's {MAX_S}")
     _contiguous(q=q, k=k, v=v)
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("bf16 q, k, v must start at 16-byte aligned "
-                         "addresses (the kernel's TMA copies need it)")
+    if bf16:
+        _aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = (torch.empty((bh, s), dtype=torch.float32, device=dev)
            if with_lse else None)
@@ -155,10 +178,10 @@ def flashattn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) of :func:`flashattn`'s output ``o`` under the
     upstream gradient ``do`` (like ``o``), from the forward's ``lse``: dq
     like q, dk and dv like k, in their dtype.  On the card: three CUDA
-    kernels (``LAUNCHES["flashattn_bwd_delta"]``, ``["flashattn_bwd_dkdv"]``
-    and ``["flashattn_bwd_dq"]``), float32 arithmetic, the GQA sum over
-    each KV head's query heads in one block in a fixed order (two calls
-    give the same bits); on the CPU :func:`flashattn_bwd_plain`."""
+    launches (``LAUNCHES["flashattn_bwd_delta"]``, ``["flashattn_bwd_dkdv"]``
+    and ``["flashattn_bwd_dq"]``), the tensor-core kernels for bf16 and
+    the CUDA-core ones for float32, as the module docstring lays out; on
+    the CPU :func:`flashattn_bwd_plain`."""
     _check_bwd(q, k, v, o, lse, do, g)
     dev = _on(q, device)
     if dev.type != "cuda":
@@ -169,6 +192,8 @@ def flashattn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"S={s} or T={t} above the kernels' {MAX_S}")
     _contiguous(q=q, k=k, v=v, o=o, lse=lse, do=do)
     bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _aligned(q=q, k=k, v=v, do=do)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((bh, s), dtype=torch.float32, device=dev)
     if bh and s:

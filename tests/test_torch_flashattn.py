@@ -134,13 +134,18 @@ def test_wrapper_refuses_tensor_on_other_device():
         flashattn(q, k, k, g=2, device="cpu")
 
 
-def _chip_smoke_bf16_tol():
-    """``chip_smoke.py``'s (rtol, atol, vtol) for bf16 flash outputs."""
+def _chip_smoke():
+    """``chip_smoke.py``, loaded by path for its tolerance constants."""
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.FLASH_TOL[torch.bfloat16]
+    return mod
+
+
+def _chip_smoke_bf16_tol():
+    """``chip_smoke.py``'s (rtol, atol, vtol) for bf16 flash outputs."""
+    return _chip_smoke().FLASH_TOL[torch.bfloat16]
 
 
 def _emulate_bf16_kernel(q, k, v, g):
@@ -365,3 +370,148 @@ def test_attention_uses_flash_function_only_for_gradients(monkeypatch):
     with torch.no_grad():
         attention.chunked_causal_attention(q, k, k)
     assert calls == ["serve", "grad", "serve"]
+
+
+# ----------------------------------------------------------------------
+# The bf16 backward kernels' rounding: ``_emulate_bf16_bwd_kernel``
+# repeats the tensor-core kernels' arithmetic in plain torch, held to
+# ``chip_smoke.py``'s ``BWD_TOL[bfloat16]`` against the plain backward and
+# the reference's ``_flash_bwd``; with p and ds rounded once to bf16 (as
+# ``scaled_dot_product_attention``'s backward does) instead of as hi + lo
+# pairs, the same check must fail, so the tolerance tells the two apart.
+# ----------------------------------------------------------------------
+def _chip_smoke_bwd_tol():
+    """``chip_smoke.py``'s (rtol, frac) for bf16 flash gradients."""
+    return _chip_smoke().BWD_TOL[torch.bfloat16]
+
+
+def _bf16_parts(x, pairs: bool):
+    """x (float32) as the bf16 operands the kernel feeds the tensor cores:
+    [hi, lo] with hi = bf16(x), lo = bf16(x − hi), or [bf16(x)]."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()] if pairs else [hi]
+
+
+def _emulate_bf16_bwd_kernel(q, k, v, o, lse, do, g, *, pairs=True):
+    """The bf16 backward kernels' arithmetic in plain torch: delta =
+    rowsum(do · o) in float32; float32 S = q kᵀ and dP = do vᵀ of the
+    bf16 inputs; p = exp2(S·scale·log2(e) − lse·log2(e)) under the causal
+    mask; ds = p (dP − delta) scale; p and ds as hi + lo bf16 pairs
+    (``pairs``) or rounded once to bf16, each part a float32-summed
+    product; dq, dk, dv rounded once to bf16."""
+    bh, s, hd = q.shape
+    bkv, t, _ = k.shape
+    scale = np.float32(1.0 / np.sqrt(hd))
+    log2e = np.float32(np.log2(np.e))
+    qf = q.float().reshape(bkv, g, s, hd)
+    dof = do.float().reshape(bkv, g, s, hd)
+    kf, vf = k.float(), v.float()
+    delta = (dof * o.float().reshape(bkv, g, s, hd)).sum(dim=-1)
+    lse2 = lse.float().reshape(bkv, g, s) * float(log2e)
+    sc = torch.einsum("bgsh,bth->bgst", qf, kf)
+    dp = torch.einsum("bgsh,bth->bgst", dof, vf)
+    mask = torch.arange(t)[None, :] <= ((t - s) + torch.arange(s))[:, None]
+    p = torch.where(mask, torch.exp2(sc * float(scale * log2e)
+                                     - lse2[..., None]), 0.0)
+    ds = p * (dp - delta[..., None]) * float(scale)
+    p_parts, ds_parts = _bf16_parts(p, pairs), _bf16_parts(ds, pairs)
+    dq = sum(torch.einsum("bgst,bth->bgsh", x, kf) for x in ds_parts)
+    dk = sum(torch.einsum("bgst,bgsh->bth", x, qf) for x in ds_parts)
+    dv = sum(torch.einsum("bgst,bgsh->bth", x, dof) for x in p_parts)
+    return (dq.reshape(bh, s, hd).to(torch.bfloat16), dk.to(torch.bfloat16),
+            dv.to(torch.bfloat16))
+
+
+def _worst_over_bwd_tol(got, want) -> float:
+    """max |a − b| / (rtol·max(|a|, |b|) + frac·max|b|) over dq, dk, dv,
+    as ``chip_smoke.bwd_close`` applies ``BWD_TOL``."""
+    rtol, frac = _chip_smoke_bwd_tol()
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        tol = rtol * np.maximum(np.abs(a), np.abs(b)) + frac * np.abs(b).max()
+        worst = max(worst, float((np.abs(a - b) / tol).max()))
+    return worst
+
+
+def _bf16_bwd_inputs(bkv, g, s, t, hd):
+    rng = np.random.default_rng(7000 + 100 * hd + 10 * g + s)
+    q, k, v = _inputs(rng, bkv, g, s, t, hd)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    return _torch(q, k, v, do, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("against", ["plain", "reference"])
+@pytest.mark.parametrize("bkv,g,s,t,hd", [
+    (2, 1, 64, 64, 16),
+    (2, 4, 128, 128, 64),
+    (1, 4, 77, 77, 64),              # ragged
+    (1, 1, 45, 333, 128),            # ragged and windowed
+    (1, 1, 77, 77, 112),             # zamba2-7b's head dim
+    (2, 4, 200, 200, 32),
+])
+def test_bf16_bwd_kernel_rounding_within_stated_tolerance(bkv, g, s, t, hd,
+                                                          against):
+    """The hi + lo emulation within ``BWD_TOL[bfloat16]`` of the plain
+    backward (on the plain forward's bf16 o and lse, as the card's check
+    feeds both sides), and of the reference's ``_flash_bwd`` through
+    ``jax.vjp`` (float32 inputs holding the bf16 values; the emulation
+    then takes the reference forward's float32 o and lse)."""
+    from repro.models.attention import (_flash_fwd_loop,
+                                        chunked_causal_attention)
+    from repro_torch.kernels.flashattn import (flashattn_bwd_plain,
+                                               flashattn_fwd_plain)
+    tq, tk, tv, tdo = _bf16_bwd_inputs(bkv, g, s, t, hd)
+    if against == "plain":
+        o, lse = flashattn_fwd_plain(tq, tk, tv, g=g)
+        want = flashattn_bwd_plain(tq, tk, tv, o, lse, tdo, g=g)
+        got = _emulate_bf16_bwd_kernel(tq, tk, tv, o, lse, tdo, g)
+        want = [x.float().numpy() for x in want]
+    else:
+        # The reference's (B, S, KVH, G, hd) layout with B = 1, KVH = bkv.
+        shape_q, shape_k = (1, s, bkv, g, hd), (1, t, bkv, hd)
+        q5, k4, v4 = _from_kernel_layout(tq.float(), tk.float(), tv.float(),
+                                         shape_q, shape_k)
+        do5 = _from_kernel_layout(tdo.float(), tk.float(), tv.float(),
+                                  shape_q, shape_k)[0]
+        o_ref, lse_ref = _flash_fwd_loop(jnp.asarray(q5), jnp.asarray(k4),
+                                         jnp.asarray(v4), 64)
+        _, vjp = jax.vjp(lambda q, k, v: chunked_causal_attention(q, k, v, 64),
+                         q5, k4, v4)
+        dq5, dk4, dv4 = (np.array(x) for x in vjp(jnp.asarray(do5)))
+        want = [x.numpy() for x in _to_kernel_layout(dq5, dk4, dv4, dq5)[:3]]
+        got = _emulate_bf16_bwd_kernel(
+            tq, tk, tv, torch.from_numpy(np.array(o_ref)).reshape(
+                bkv * g, s, hd),
+            torch.from_numpy(np.array(lse_ref)).reshape(bkv * g, s), tdo, g)
+    worst = _worst_over_bwd_tol([x.float().numpy() for x in got], want)
+    assert worst <= 1.0, worst
+
+
+def test_bf16_bwd_single_rounding_breaks_stated_tolerance():
+    """Negative control: p and ds rounded once to bf16 miss ``BWD_TOL``
+    by far (tens of times) where the hi + lo pairs pass."""
+    from repro_torch.kernels.flashattn import (flashattn_bwd_plain,
+                                               flashattn_fwd_plain)
+    tq, tk, tv, tdo = _bf16_bwd_inputs(2, 4, 128, 128, 64)
+    o, lse = flashattn_fwd_plain(tq, tk, tv, g=4)
+    want = [x.float().numpy()
+            for x in flashattn_bwd_plain(tq, tk, tv, o, lse, tdo, g=4)]
+    worst = {pairs: _worst_over_bwd_tol(
+        [x.float().numpy() for x in _emulate_bf16_bwd_kernel(
+            tq, tk, tv, o, lse, tdo, 4, pairs=pairs)], want)
+        for pairs in (True, False)}
+    assert worst[True] <= 1.0 and worst[False] > 10.0, worst
+
+
+def test_bwd_wrapper_refuses_misaligned_bf16_tensors():
+    """The bf16 kernels' TMA copies need 16-byte aligned starts: a
+    contiguous view 2 bytes past an aligned address (``do.contiguous()``
+    of an offset view) is refused by name."""
+    from repro_torch.kernels.flashattn import _aligned
+    fresh = torch.zeros((4, 16), dtype=torch.bfloat16)
+    view = torch.zeros(65, dtype=torch.bfloat16)[1:].view(4, 16)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    _aligned(q=fresh, do=fresh)
+    with pytest.raises(ValueError, match=r"bf16 do must start at 16-byte"):
+        _aligned(q=fresh, do=view)
