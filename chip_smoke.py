@@ -21,15 +21,16 @@ Phases, each printing one JSON line (``"phase": ...``):
    sources just built (each ``extern "C"`` function matched to its
    ``_build.SIGNATURES`` argtypes).
 3. kernels — each kernel against its plain PyTorch version on the card.
-   The flash kernels (``FLASH_TOL``): head dims 16/32/64/112/128, g 1
-   and 4, S = T = 77 and 1,000, S = 45 < T = 333, float32 (the CUDA-core
-   kernel) and bf16 (the tensor-core kernel), and bf16 at the prefill
-   shapes of the four llm phases (granite hd 64, g 4; qwen3 hd 128, g 8;
-   musicgen hd 64, g 1; zamba2-7b hd 112, g 1; S = T = 1,024).  The
-   flash backward (``BWD_TOL``) against the plain backward on the kernel
-   forward's o and lse, at the same head dims, g, lengths and dtypes and
-   at granite-3-2b's training shape (BH 256, g 4, S = T = 1,024, hd 64,
-   bf16); the worst |diff| / tolerance per dtype; the forward's lse
+   The flash kernels (``FLASH_TOL``): head dims 16/32/64/112/128, g 1,
+   2 and 4, S = T = 77 and 1,000, S = 45 < T = 333, float32 (the
+   CUDA-core kernel) and bf16 (the tensor-core kernel), and bf16 at the
+   prefill shapes of the four llm phases (granite hd 64, g 4; qwen3 hd
+   128, g 8; musicgen hd 64, g 1; zamba2-7b hd 112, g 1; S = T = 1,024)
+   and at granite's training shape under KV-head replication (BKV 128,
+   g 2).  The flash backward (``BWD_TOL``) against the plain backward on
+   the kernel forward's o and lse, at the same head dims, g, lengths and
+   dtypes and at granite-3-2b's training shapes (BH 256, g 4 and, under
+   replication, g 2; S = T = 1,024, hd 64, bf16); the worst |diff| / tolerance per dtype; the forward's lse
    against the plain loop's (``LSE_ATOL``); a second backward call
    bit-identical; a bf16 ``do`` that starts 2 bytes past an aligned
    address refused with ``ValueError`` (the TMA copies).  The
@@ -167,6 +168,23 @@ Phases, each printing one JSON line (``"phase": ...``):
    syncs from ``train/`` and ``models/``).  Phase train_checkpoint: the
    same model cut to 2 layers, two steps, a save, two more; the restored
    state through the same two steps: master weights equal bit for bit.
+   Phase train_kvrep: the same model and state with ``kv_replication=2``
+   (each of the 8 KV heads twice, so the kernels run at g 2): the loss
+   and gradient norm at the fresh weights within ``MB_RTOL`` of r = 1's,
+   one timed step with its peak memory, 80 flash forwards and 40 of each
+   backward kernel, every one at g 2.  Phase train_mesh: a single-rank
+   NCCL process group (a ``FileStore`` in a temporary directory: no
+   network, no port) and a (1, 1) ``("data", "model")`` device mesh; the
+   same state placed by ``launch.sharding.train_state_shardings`` and
+   two timed steps of ``make_train_step(grad_specs=...)`` under
+   ``shardctx.activation_sharding``: the first's loss and gradient norm
+   within ``MB_RTOL`` of the unmeshed step from the same state and, as
+   every redistribution on a 1 x 1 mesh is a no-op, bit-equal to it, the
+   master weights too, the flash kernels launched through
+   ``local_map``; at the 2-layer cut, ``save`` and ``restore(shardings=)``
+   bit-equal with every leaf on the mesh; ``make_compressed_allreduce``
+   over the one rank, both codecs, equal bit for bit to
+   ``compress_leaf``'s dequantized payload.
 9. timing  — each kernel's time on the largest dispatch of the path its
    launches are counted on (CUDA graph of repeated wrapper calls, so host
    overhead is excluded), its plain version's time, and its bound on this
@@ -690,13 +708,20 @@ SERVE_FLASH = (64, 4, 1024, 64)
 MOE_FLASH = (32, 8, 1024, 128)
 EMBED_FLASH = (256, 1, 1024, 64)
 HYBRID_FLASH = (256, 1, 1024, 112)
+#: granite-3-2b's training shape under KV-head replication r = 2 (phase
+#: train_kvrep: 8 KV heads repeated twice, so 16 groups of 2 query heads).
+KVREP_FLASH = (128, 2, 1024, 64)
+#: Query heads per KV head in the small cases: 1 (MHA, zamba2-7b), 2
+#: (granite-3-2b under r = 2), 4 (granite-3-2b).
+FLASH_GROUPS = (1, 2, 4)
 
 
 def flash_checks(dev) -> dict:
     """The flash kernel against its plain version on seeded normal
-    inputs: every head dim, g 1 and 4, S = T ragged, S < T windowed,
+    inputs: every head dim, g 1, 2 and 4, S = T ragged, S < T windowed,
     float32 (the CUDA-core kernel) and bf16 (the tensor-core kernel); and
-    bf16 at the four llm phases' prefill shapes."""
+    bf16 at the four llm phases' prefill shapes and at granite-3-2b's
+    training shape under KV-head replication (g 2)."""
     from repro_torch.kernels import flashattn as fa
     gen = torch.Generator(device=dev).manual_seed(2026)
     err = {str(dt): 0.0 for dt in FLASH_TOL}
@@ -714,12 +739,12 @@ def flash_checks(dev) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         for hd in fa.HEAD_DIMS:
-            for g in (1, 4):
+            for g in FLASH_GROUPS:
                 for s, t in ((77, 77), (1000, 1000), (45, 333)):
                     case(dtype, 2, g, s, t, hd)
                     cases += 1
     for bkv, g, s, hd in (SERVE_FLASH, MOE_FLASH, EMBED_FLASH,
-                          HYBRID_FLASH):
+                          HYBRID_FLASH, KVREP_FLASH):
         case(torch.bfloat16, bkv, g, s, s, hd)
         cases += 1
     torch.cuda.synchronize()
@@ -750,8 +775,9 @@ def bwd_close(a, b, dtype, what: str) -> tuple[float, float]:
 def flash_bwd_checks(dev) -> dict:
     """The flash backward kernels against the plain backward, and the
     forward's lse against the plain loop's, on seeded normal inputs: every
-    head dim, g 1 and 4, S = T = 77 and 1,000, S = 45 < T = 333, float32
-    and bf16, and bf16 at granite-3-2b's training shape.  Both backwards
+    head dim, g 1, 2 and 4, S = T = 77 and 1,000, S = 45 < T = 333,
+    float32 and bf16, and bf16 at granite-3-2b's training shape, with and
+    without KV-head replication (g 4 and g 2).  Both backwards
     take the kernel forward's o and lse; a second call must give the same
     bits; the worst |diff| / tolerance shows each dtype's margin.  Then a
     bf16 ``do`` view 2 bytes past an aligned start must be refused."""
@@ -788,13 +814,13 @@ def flash_bwd_checks(dev) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         for hd in fa.HEAD_DIMS:
-            for g in (1, 4):
+            for g in FLASH_GROUPS:
                 for s, t in ((77, 77), (1000, 1000), (45, 333)):
                     case(dtype, 2, g, s, t, hd)
                     cases += 1
-    bkv, g, s, hd = TRAIN_FLASH
-    case(torch.bfloat16, bkv, g, s, s, hd)
-    cases += 1
+    for bkv, g, s, hd in (TRAIN_FLASH, KVREP_FLASH):
+        case(torch.bfloat16, bkv, g, s, s, hd)
+        cases += 1
     torch.cuda.synchronize()
     misaligned = misaligned_bwd_refused(dev)
     return {"cases": cases, "max_abs_err": max(err.values()),
@@ -2719,7 +2745,7 @@ def train_path(dev, card):
     del state, model
     free_card()
     train_checkpoint(dev, card)
-    return steps[-1]["launches"]
+    return steps[-1]["launches"], steps[-1]["wall_s"]
 
 
 def ce_timing(cfg, model, dev) -> float:
@@ -2833,6 +2859,280 @@ def train_checkpoint(dev, card):
           "card": card})
     del state, resumed
     free_card()
+
+
+#: KV-head replication of phase train_kvrep: granite-3-2b's 8 KV heads
+#: each twice, so 16 groups of 2 query heads (the reference's
+#: ``kv_replication_for(32, 8, 16)``).
+KVREP = 2
+
+
+@contextlib.contextmanager
+def recording_groups(groups: list):
+    """Stand-ins for ``kernels.flashattn.flashattn_fwd`` and
+    ``flashattn_bwd`` (the calls ``FlashAttention`` makes) that append
+    each call's ("fwd" or "bwd", g) to ``groups``."""
+    from repro_torch.kernels import flashattn as fa
+
+    def recorder(fn, kind):
+        def call(*args, **kw):
+            groups.append((kind, kw["g"]))
+            return fn(*args, **kw)
+        return call
+    with patched(fa, "flashattn_fwd", recorder(fa.flashattn_fwd, "fwd")), \
+            patched(fa, "flashattn_bwd", recorder(fa.flashattn_bwd, "bwd")):
+        yield
+
+
+def train_kvrep_path(dev, card, train_step_s: float):
+    """granite-3-2b at full width and depth with ``kv_replication=2``,
+    from phase train's seeded state and batches: the loss and gradient
+    norm at the fresh weights within ``MB_RTOL`` of r = 1's, every flash
+    call at g 2 (80 forwards and 40 of each backward kernel per step);
+    two steps, the second timed without the recording stand-ins, with
+    the peak memory.  Returns the launches of a step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+    free_card()
+    cfg = ARCHS[TRAIN_ARCH]
+    rep = dataclasses.replace(cfg, kv_replication=KVREP)
+    g = cfg.num_heads // cfg.num_kv_heads // KVREP
+    state = step_lib.init_train_state(
+        rep, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    model = state["params"]
+    batches = train_batches(cfg.vocab_size)
+    want = {n: k * cfg.num_layers for n, k in TRAIN_LAUNCHES.items()}
+    calls = want["flashattn"] + want["flashattn_bwd_dq"]
+    groups = []
+    with recording_groups(groups):
+        loss2, norm2, counts2 = grads_at(rep, model, batches[0])
+    check(counts2 == want, f"r = {KVREP}: loss and gradient launched "
+          f"{counts2}, not {want}")
+    check(len(groups) == calls and {x[1] for x in groups} == {g},
+          f"r = {KVREP}: flash calls at g {sorted(set(groups))}, "
+          f"{len(groups)} of them")
+    loss1, norm1, _ = grads_at(cfg, model, batches[0])
+    rel = {"loss": abs(loss2 - loss1) / abs(loss1),
+           "grad_norm": abs(norm2 - norm1) / abs(norm1)}
+    check(all(rel[k] <= MB_RTOL[k] for k in MB_RTOL),
+          f"r = {KVREP} against r = 1: relative differences {rel}")
+    step = step_lib.make_train_step(rep, opt_lib.AdamWConfig(**TRAIN_OPT))
+    groups.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recording_groups(groups):
+        state, m1, wall1, counts = timed_step(step, state, batches[0], dev)
+    check(counts == want and len(groups) == calls
+          and {x[1] for x in groups} == {g},
+          f"r = {KVREP} step launched {counts} at g {set(groups)}")
+    state, m2, wall2, counts_b = timed_step(step, state, batches[1], dev)
+    check(counts_b == want, f"r = {KVREP} second step launched {counts_b}")
+    check(all(np.isfinite(v) for v in (*m1.values(), *m2.values())),
+          f"r = {KVREP}: non-finite metrics {m1} {m2}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train_kvrep", "arch": TRAIN_ARCH, "layers":
+          cfg.num_layers, "kv_replication": KVREP, "g": g,
+          "flash_shape": {"bh": TRAIN_BATCH * cfg.num_heads, "bkv":
+                          TRAIN_BATCH * cfg.num_kv_heads * KVREP, "g": g,
+                          "s": TRAIN_SEQ, "hd": cfg.resolved_head_dim},
+          "fresh_weights": {"loss": loss2, "grad_norm": norm2,
+                            "loss_r1": loss1, "grad_norm_r1": norm1,
+                            "rel_diff": rel, "rtol": MB_RTOL},
+          "steps": [{"step": i, "wall_s": w, "tokens_per_s": tokens / w,
+                     **mm} for i, (w, mm) in enumerate(((wall1, m1),
+                                                         (wall2, m2)))],
+          "launches": counts, "flash_calls_by_g": {str(g): len(groups)},
+          "peak_memory_gib": peak, "train_step_s_g4": train_step_s,
+          "step_s_ratio_g2_over_g4": wall2 / train_step_s, "card": card})
+    del state, model
+    free_card()
+    return counts
+
+
+def _leaves_equal_on(mesh, got: dict, want: dict) -> bool:
+    """Every leaf of ``got`` a DTensor on ``mesh`` whose full value equals
+    ``want``'s leaf bit for bit."""
+    from torch.distributed.tensor import DTensor
+    for name, w in want.items():
+        x = got[name]
+        check(isinstance(x, DTensor) and x.device_mesh is mesh,
+              f"{name}: not a DTensor on the mesh")
+        full, ref = x.full_tensor(), w.full_tensor() if isinstance(
+            w, DTensor) else w
+        if full.dtype != ref.dtype or not torch.equal(full, ref):
+            return False
+    return True
+
+
+def train_mesh_path(dev, card):
+    """granite-3-2b at full width and depth on a (1, 1) ``("data",
+    "model")`` device mesh over a single-rank NCCL process group (a
+    ``FileStore`` in a temporary directory): one unmeshed step from the
+    seeded state, then the same state placed by
+    ``train_state_shardings`` through two timed steps of
+    ``make_train_step(grad_specs=grad_specs(...))`` under
+    ``activation_sharding``: the first's loss and gradient norm within
+    ``MB_RTOL`` of the unmeshed one's and, since every redistribution
+    on a 1 x 1 mesh is a no-op, equal to it bit for bit, the master
+    weights too, 80 flash forwards and 40 of each backward kernel per step,
+    each forward inside ``local_map``.  Then, at 2 layers, ``save`` and
+    ``restore(shardings=)`` on the mesh, bit-equal; and
+    ``make_compressed_allreduce`` over the one rank, both codecs, equal
+    to ``compress_leaf``'s dequantized payload bit for bit.  Returns the
+    launches of a meshed step."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import shardctx
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import compress
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+    free_card()
+    cfg = ARCHS[TRAIN_ARCH]
+    ocfg = opt_lib.AdamWConfig(**TRAIN_OPT)
+    batches = train_batches(cfg.vocab_size)
+    want = {n: k * cfg.num_layers for n, k in TRAIN_LAUNCHES.items()}
+
+    def fresh(c, seed):
+        return step_lib.init_train_state(
+            c, generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
+
+    state = fresh(cfg, 0)
+    state, m0, wall0, counts0 = timed_step(
+        step_lib.make_train_step(cfg, ocfg), state, batches[0], dev)
+    check(counts0 == want, f"unmeshed step launched {counts0}")
+    # The unmeshed masters stay on the card for the comparison; the
+    # meshed steps' peak is reported with and without them.
+    master0 = {n: t.clone() for n, t in state["opt"]["master"].items()}
+    copy_gib = sum(t.numel() * t.element_size()
+                   for t in master0.values()) / 2**30
+    del state
+    free_card()
+    local_calls = [0]
+    local_map = shardctx.local_map
+
+    def counted(*args, **kw):
+        local_calls[0] += 1
+        return local_map(*args, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = M.make_mesh_compat((1, 1), ("data", "model"))
+            specs = step_lib.train_state_specs(cfg)
+            sh = shd.train_state_shardings(cfg, mesh, specs)
+            state = shd.place(fresh(cfg, 0), sh, mesh)
+            step = step_lib.make_train_step(
+                cfg, ocfg, grad_specs=shd.grad_specs(cfg, mesh,
+                                                     specs["params"]))
+            steps, dmaster = [], None
+            torch.cuda.reset_peak_memory_stats(dev)
+            with shardctx.activation_sharding(mesh), \
+                    patched(shardctx, "local_map", counted):
+                for i in range(2):
+                    local_calls[0] = 0
+                    state, m, wall, counts = timed_step(step, state,
+                                                        batches[i], dev)
+                    check(counts == want, f"meshed step {i} launched "
+                          f"{counts}, not {want}")
+                    check(local_calls[0] == want["flashattn"],
+                          f"meshed step {i}: {local_calls[0]} local_map "
+                          f"calls, not {want['flashattn']}")
+                    steps.append({"step": i, "wall_s": wall,
+                                  "local_map_calls": local_calls[0], **m})
+                    if i == 0:
+                        dmaster = max(float((t.full_tensor() - master0[n])
+                                            .abs().max())
+                                      for n, t in
+                                      state["opt"]["master"].items())
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            placed_ok = all(
+                p.placements == M.to_placements(sh["params"][n], mesh)
+                for n, p in state["params"].named_parameters())
+            check(placed_ok, "parameters left their placements")
+            rel = {k: abs(steps[0][k] - m0[k]) / abs(m0[k]) for k in MB_RTOL}
+            check(all(rel[k] <= MB_RTOL[k] for k in MB_RTOL),
+                  f"meshed step against unmeshed: relative differences "
+                  f"{rel}")
+            # On a 1 x 1 mesh every redistribution is a no-op: the first
+            # meshed step is the unmeshed one, bit for bit.
+            check(dmaster == 0 and all(v == 0.0 for v in rel.values()),
+                  f"meshed step against unmeshed on a 1 x 1 mesh: master "
+                  f"max |diff| {dmaster}, relative differences {rel}")
+            del state, master0
+            free_card()
+
+            # Checkpoint at the 2-layer cut, on the mesh.
+            small = dataclasses.replace(cfg, num_layers=2)
+            sspecs = step_lib.train_state_specs(small)
+            ssh = shd.train_state_shardings(small, mesh, sspecs)
+            st = shd.place(fresh(small, 1), ssh, mesh)
+            build = os.path.join(ROOT, "build")
+            os.makedirs(build, exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=build) as root:
+                t0 = time.perf_counter()
+                ckpt.save(root, 2, st)
+                save_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                back, at, _ = ckpt.restore(root, st, shardings=ssh,
+                                           mesh=mesh, device=dev)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+            check(at == 2, f"restored step {at}")
+            ckpt_equal = _leaves_equal_on(mesh, dict(ckpt._flatten(back)),
+                                          dict(ckpt._flatten(st)))
+            check(ckpt_equal, "restored leaves differ from the saved ones")
+            del st, back
+            free_card()
+
+            # Compressed all-reduce over the one rank.
+            gen = torch.Generator(device=dev).manual_seed(7)
+            shapes = {"wq": (cfg.d_model, cfg.d_model), "ln":
+                      (cfg.d_model,), "wo": (cfg.d_model, cfg.d_ff)}
+
+            def dt(x):
+                return distribute_tensor(x, mesh, [Shard(0), Replicate()])
+            grads = {n: dt(torch.randn((1, *sz), generator=gen, device=dev))
+                     for n, sz in shapes.items()}
+            errs = {n: dt(torch.randn((1, *sz), generator=gen, device=dev)
+                          * 1e-3) for n, sz in shapes.items()}
+            codecs = {}
+            for codec in ("bf16", "int8"):
+                mean, err = compress.make_compressed_allreduce(
+                    mesh, ("data",), codec)(grads, errs)
+                same = True
+                for n in shapes:
+                    q, scale, e_new = compress.compress_leaf(
+                        grads[n].to_local()[0], errs[n].to_local()[0], codec)
+                    same &= torch.equal(mean[n].to_local(),
+                                        compress._dequantize(q, scale, codec))
+                    same &= torch.equal(err[n].to_local()[0], e_new)
+                check(same, f"compressed all-reduce {codec} differs from "
+                      f"compress_leaf")
+                codecs[codec] = same
+        finally:
+            dist.destroy_process_group()
+    emit({"phase": "train_mesh", "arch": TRAIN_ARCH, "layers":
+          cfg.num_layers, "mesh": {"shape": [1, 1], "axes":
+                                   ["data", "model"], "backend": "nccl"},
+          "unmeshed": {"wall_s": wall0, **m0}, "steps": steps,
+          "rel_diff": rel, "rtol": MB_RTOL, "master_max_abs_diff": dmaster,
+          "launches": counts, "peak_memory_gib": peak,
+          "unmeshed_master_copy_gib": copy_gib,
+          "peak_memory_gib_less_copy": peak - copy_gib,
+          "step_s_ratio_mesh_over_unmeshed": steps[-1]["wall_s"] / wall0,
+          "checkpoint": {"layers": 2, "save_s": save_s, "restore_s":
+                         restore_s, "bit_equal_on_mesh": ckpt_equal},
+          "compressed_allreduce_bit_equal": codecs, "card": card})
+    return counts
 
 
 def llm_xlstm_path(dev, card):
@@ -3308,7 +3608,9 @@ def main() -> int:
     embed_launches = llm_embed_path(dev, card)
     hybrid_launches, hybrid_shape = llm_hybrid_path(dev, card)
     llm_xlstm_path(dev, card)
-    train_launches = train_path(dev, card)
+    train_launches, train_step_s = train_path(dev, card)
+    kvrep_launches = train_kvrep_path(dev, card, train_step_s)
+    mesh_launches = train_mesh_path(dev, card)
     c3_live = path_counts[("C3", "hierarchical/fused")]
     c3_live_rowloop = path_counts[("C3", "hierarchical/fused_rowloop")]
     counts = {
@@ -3356,8 +3658,18 @@ def main() -> int:
         f"{EMBED_ARCH} prefill (8 × 1,024 embeddings)": embed_launches,
         hybrid_flash["launches_counted_on"]: hybrid_launches,
         train_on + ", with lse": train_launches["flashattn"]}
+    kvrep_on = f"{train_on}, kv_replication={KVREP} (g 2), with lse"
+    mesh_on = f"{train_on} on a (1, 1) mesh, through local_map, with lse"
+    by_name["flashattn"]["launches_other_paths"].update({
+        kvrep_on: kvrep_launches["flashattn"],
+        mesh_on: mesh_launches["flashattn"]})
     by_name["flashattn_bwd"] = flash_bwd_timing(dev, train_launches,
                                                 train_on)
+    by_name["flashattn_bwd"]["launches_other_paths"] = {
+        kvrep_on: {k: n for k, n in kvrep_launches.items()
+                   if k.startswith("flashattn_bwd")},
+        mesh_on: {k: n for k, n in mesh_launches.items()
+                  if k.startswith("flashattn_bwd")}}
     by_name["flashattn"]["other_shapes"] = [{
         k: row[k] for k in ("shape", "launches", "max_abs_err", "ms",
                             "plain_ms", "bound_ms", "bound_by",

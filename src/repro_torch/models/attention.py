@@ -13,10 +13,17 @@ kernel, which recomputes the probability tiles.  Decode attention stays
 plain PyTorch, as the reference computes it with ``einsum`` and
 ``softmax`` outside any kernel.
 
-Not ported: the reference's ``shardctx.constrain`` calls (no-ops outside
-a mesh context; the device-mesh version comes with ``launch/``) and
-KV-head replication for tensor parallelism (``kv_repeat``, a launcher
-setting).
+KV-head replication (``kv_repeat``, the reference's Megatron GQA trick
+for tensor parallelism, :func:`kv_replication_for`): each K/V head is
+repeated r times and the queries regroup into KVH·r groups of G/r, so
+the kernel sees G/r query heads per KV head; prefill forces r = 1, so
+the decode cache holds the true KV heads.
+
+On a device mesh (``models.shardctx``), q, k, v and the attention
+output are laid out at the reference's ``constrain`` sites, and the
+kernel, which takes no DTensor, runs on each rank's heads through
+``shardctx.local`` (``local_map``): heads shard over ``model`` where
+their count divides it, and are replicated where it does not.
 """
 from __future__ import annotations
 
@@ -25,7 +32,21 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flashattn import NEG_INF, FlashAttention, flashattn
+from repro_torch.models import shardctx
 from repro_torch.models.layers import RMSNorm, apply_rope, linear
+
+
+def kv_replication_for(num_heads: int, num_kv_heads: int, tp: int) -> int:
+    """Minimal KV-head replication r (dividing the group size) such that
+    kv_heads·r shards over a tp-way axis (e.g. kv 8, TP 16 ⇒ r 2); 1 when
+    none does."""
+    g = num_heads // num_kv_heads
+    if num_kv_heads % tp == 0:
+        return 1
+    for r in range(2, g + 1):
+        if g % r == 0 and (num_kv_heads * r) % tp == 0:
+            return r
+    return 1
 
 
 class Attention(nn.Module):
@@ -47,7 +68,7 @@ class Attention(nn.Module):
 
 def _project_qkv(attn: Attention, x: torch.Tensor, num_heads: int,
                  num_kv_heads: int, head_dim: int, positions: torch.Tensor,
-                 rope_theta: float, qk_norm: bool):
+                 rope_theta: float, qk_norm: bool, kv_repeat: int = 1):
     b, s, _ = x.shape
     g = num_heads // num_kv_heads
     q = attn.wq(x).reshape(b, s, num_kv_heads, g, head_dim)
@@ -59,6 +80,18 @@ def _project_qkv(attn: Attention, x: torch.Tensor, num_heads: int,
     q = apply_rope(q.reshape(b, s, num_kv_heads * g, head_dim), positions,
                    rope_theta).reshape(b, s, num_kv_heads, g, head_dim)
     k = apply_rope(k, positions, rope_theta)
+    if kv_repeat > 1:
+        # each KV head r times in a row (jnp.repeat), queries regrouped
+        if g % kv_repeat:
+            raise ValueError(f"kv_repeat={kv_repeat} does not divide the "
+                             f"group size {g}")
+        k = k.repeat_interleave(kv_repeat, dim=2)
+        v = v.repeat_interleave(kv_repeat, dim=2)
+        q = q.reshape(b, s, num_kv_heads * kv_repeat, g // kv_repeat,
+                      head_dim)
+    q = shardctx.constrain(q, ("batch", "q_seq", "heads", None, None))
+    k = shardctx.constrain(k, ("batch", "kv_seq", "heads", None))
+    v = shardctx.constrain(v, ("batch", "kv_seq", "heads", None))
     return q, k, v
 
 
@@ -67,11 +100,21 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     """Causal attention with queries aligned to the end of the key range.
 
     q: (B, S, KVH, G, hd); k, v: (B, T, KVH, hd) → (B, S, KVH, G, hd) in
-    q's dtype.  Reshapes to the kernel's (B·KVH·G, S, hd) / (B·KVH, T, hd)
-    layout (one copy each way) and calls :func:`kernels.flashattn.flashattn`
-    on the tensors' device, or ``FlashAttention`` (its gradient through
-    the backward kernel) when one is wanted.
-    """
+    q's dtype, through the flash kernel (:func:`_flash`); on a mesh, on
+    each rank's batch and heads."""
+    return shardctx.local(_flash, (q, k, v),
+                          (("batch", "q_seq", "heads", None, None),
+                           ("batch", "kv_seq", "heads", None),
+                           ("batch", "kv_seq", "heads", None)), (0,))
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+           ) -> torch.Tensor:
+    """:func:`chunked_causal_attention` on plain tensors: reshapes to the
+    kernel's (B·KVH·G, S, hd) / (B·KVH, T, hd) layout (one copy each
+    way) and calls :func:`kernels.flashattn.flashattn` on the tensors'
+    device, or ``FlashAttention`` (its gradient through the backward
+    kernel) when one is wanted."""
     b, s, kvh, g, hd = q.shape
     t = k.shape[1]
     qf = q.permute(0, 2, 3, 1, 4).reshape(b * kvh * g, s, hd).contiguous()
@@ -104,14 +147,20 @@ def naive_causal_attention(q: torch.Tensor, k: torch.Tensor,
 def attention_block(attn: Attention, x: torch.Tensor,
                     positions: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int, rope_theta: float,
-                    qk_norm: bool = False, return_kv: bool = False):
-    """Full causal self-attention over x (B, S, D) → (B, S, D); with
-    ``return_kv`` also the (k, v) projections (B, S, KVH, hd), which
-    prefill writes into the decode cache."""
+                    qk_norm: bool = False, kv_repeat: int = 1,
+                    return_kv: bool = False):
+    """Full causal self-attention over x (B, S, D) → (B, S, D), with each
+    KV head replicated ``kv_repeat`` times; with ``return_kv`` also the
+    (k, v) projections (B, S, KVH, hd), which prefill writes into the
+    decode cache (``kv_repeat`` is then 1: the cache holds the true KV
+    heads)."""
     b, s, _ = x.shape
+    if return_kv:
+        kv_repeat = 1
     q, k, v = _project_qkv(attn, x, num_heads, num_kv_heads, head_dim,
-                           positions, rope_theta, qk_norm)
+                           positions, rope_theta, qk_norm, kv_repeat)
     o = chunked_causal_attention(q, k, v).reshape(b, s, num_heads * head_dim)
+    o = shardctx.constrain(o, ("batch", "seq", "heads"))
     out = attn.wo(o)
     if return_kv:
         return out, (k, v)
@@ -159,5 +208,5 @@ def attention_decode(attn: Attention, x: torch.Tensor, cache: dict,
 
 
 __all__ = ["Attention", "attention_block", "attention_decode",
-           "chunked_causal_attention", "make_kv_cache",
+           "chunked_causal_attention", "kv_replication_for", "make_kv_cache",
            "naive_causal_attention"]

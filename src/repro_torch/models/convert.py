@@ -65,6 +65,37 @@ _FLOAT32 = {"moe.router", "mamba.A_log", "mamba.D", "mamba.dt_bias",
             "mlstm.wif.weight", "mlstm.f_bias", "slstm.r", "slstm.f_bias"}
 
 
+#: Stacks of layers: port prefix → (its key table, its number of
+#: leading stack dims in the reference).
+_STACKS = {"layers": (_LAYER_KEYS, 1), "shared_attn": (_LAYER_KEYS, 0),
+           "mamba_groups": (_MAMBA_KEYS, 2), "mamba_tail": (_MAMBA_KEYS, 1),
+           "mlstm": (_MLSTM_KEYS, 2), "slstm": (_SLSTM_KEYS, 1)}
+#: Unstacked tables and norms: port name → reference path.
+_TOP = {"embed.table": ("embed", "table"), "head.table": ("head", "table"),
+        "final_ln.scale": ("final_ln", "scale")}
+
+
+def reference_location(name: str) -> tuple[tuple[str, ...], int, bool]:
+    """(reference path, number of leading stack dims, transposed) of the
+    port's parameter ``name``: ``layers.3.attn.wq.weight`` is layer 3 of
+    the reference's ``layers/attn/wq`` (L, d_in, d_out), so
+    ``(("layers", "attn", "wq"), 1, True)``.  The layer indices are the
+    name's first ``lead`` integers after the prefix.
+    :func:`params_from_jax` and ``launch.sharding.param_spec`` both read
+    this table."""
+    if name in _TOP:
+        return _TOP[name], 0, False
+    prefix, _, rest = name.partition(".")
+    if prefix not in _STACKS:
+        raise KeyError(f"{name}: not a parameter of the port's LM")
+    keys, lead = _STACKS[prefix]
+    local = rest.split(".", lead)[lead] if lead else rest
+    for path, port_name, transpose in keys:
+        if port_name == local:
+            return (prefix, *path), lead, transpose
+    raise KeyError(f"{name}: not a parameter of the port's LM")
+
+
 def _get(tree, path):
     for key in path:
         if key not in tree:
@@ -77,7 +108,8 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
     """The port's state dict (CPU tensors in ``cfg.dtype``, the
     :data:`_FLOAT32` ones in float32) for the reference's parameter tree
     ``tree`` of numpy arrays; load it with ``LM(cfg,
-    device=...).load_state_dict(...)``."""
+    device=...).load_state_dict(...)``.  Each entry is found by
+    :func:`reference_location`."""
     model_dtype = getattr(torch, cfg.dtype)
 
     def tensor(a, dtype=model_dtype) -> torch.Tensor:
@@ -86,39 +118,25 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
         # read-only).
         return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 
-    state = {"embed.table": tensor(tree["embed"]["table"]),
-             "final_ln.scale": tensor(tree["final_ln"]["scale"])}
-    if not cfg.tie_embeddings:
-        state["head.table"] = tensor(tree["head"]["table"])
-
-    def carry(prefix: str, keys, lead: tuple[int, ...]):
-        # Each layer of the stack tree[prefix], stacked on `lead` axes,
-        # to the state dict entries "{prefix}.{i}[.{j}].{name}".
-        for path, name, transpose in keys:
-            stacked = _get(tree[prefix], path)
-            if stacked is None:
-                continue
-            if stacked.shape[:len(lead)] != lead:
-                raise ValueError(f"{prefix}/{'/'.join(path)} is stacked "
-                                 f"{stacked.shape[:len(lead)]}, not {lead}")
-            dtype = torch.float32 if name in _FLOAT32 else model_dtype
-            for at in np.ndindex(*lead):
-                w = tensor(stacked[at], dtype)
-                key = ".".join([prefix, *map(str, at), name])
-                state[key] = w.T.contiguous() if transpose else w
-
-    if cfg.block_pattern == "attn":
-        carry("layers", _LAYER_KEYS, (cfg.num_layers,))
-    elif cfg.block_pattern == "zamba":
-        g, tail = transformer._zamba_group_sizes(cfg)
-        carry("mamba_groups", _MAMBA_KEYS, (g, cfg.shared_attn_every or 6))
-        if tail:
-            carry("mamba_tail", _MAMBA_KEYS, (tail,))
-        carry("shared_attn", _LAYER_KEYS, ())
-    else:
-        g, m_per, _ = transformer._xlstm_group_sizes(cfg)
-        carry("mlstm", _MLSTM_KEYS, (g, m_per))
-        carry("slstm", _SLSTM_KEYS, (g,))
+    state, used = {}, {}
+    for name in transformer.param_specs(cfg):
+        path, lead, transpose = reference_location(name)
+        stacked = _get(tree, path)
+        if stacked is None:
+            raise KeyError(f"{name}: the reference has no {'/'.join(path)}")
+        at = tuple(int(i) for i in name.split(".")[1:1 + lead])
+        if any(i >= n for i, n in zip(at, stacked.shape)):
+            raise ValueError(f"{'/'.join(path)} is stacked "
+                             f"{stacked.shape[:lead]}, not past {at}")
+        used.setdefault(path, (stacked.shape[:lead], set()))[1].add(at)
+        local = name.split(".", 1 + lead)[-1]
+        w = tensor(stacked[at],
+                   torch.float32 if local in _FLOAT32 else model_dtype)
+        state[name] = w.T.contiguous() if transpose else w
+    for path, (lead_shape, seen) in used.items():
+        if len(seen) != int(np.prod(lead_shape, dtype=np.int64)):
+            raise ValueError(f"{'/'.join(path)} is stacked {lead_shape}, "
+                             f"not {len(seen)}")
     return state
 
 
@@ -139,4 +157,5 @@ def train_state_from_jax(cfg: ModelConfig, state, *, device="cuda") -> dict:
     return {"params": model, "opt": opt}
 
 
-__all__ = ["params_from_jax", "train_state_from_jax"]
+__all__ = ["params_from_jax", "reference_location",
+           "train_state_from_jax"]

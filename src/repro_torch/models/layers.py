@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import shardctx
 
 MLP_TYPES = ("swiglu", "gelu", "relu2")
 
@@ -93,6 +94,8 @@ class MLP(nn.Module):
             h = torch.square(F.relu(self.up(x)))
         else:
             h = F.gelu(self.up(x), approximate="tanh")
+        h = shardctx.constrain(h, ("batch",) + (None,) * (h.ndim - 2)
+                               + ("ffn",))
         return self.down(h)
 
 
@@ -137,13 +140,15 @@ def _ce_chunk(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
     """Σ (logsumexp − gold logit) over one chunk of positions: the logits
     as ``Embedding.unembed`` makes them (float32 product of the model-dtype
     operands), −1e30 past ``true_vocab``."""
-    logits = torch.matmul(x.float(), table.float().T)
+    logits = shardctx.constrain(torch.matmul(x.float(), table.float().T),
+                                ("batch", None, "vocab"))
     vp = table.shape[0]
     if true_vocab is not None and true_vocab < vp:
         keep = torch.arange(vp, device=x.device) < true_vocab
         logits = torch.where(keep, logits, -1e30)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = torch.gather(shardctx.unshard(logits, -1), -1,
+                        labels[..., None].long())[..., 0]
     return (logz - gold).sum()
 
 
@@ -161,9 +166,9 @@ def chunked_cross_entropy(head: Embedding, x: torch.Tensor,
     b, s, _ = x.shape
     total = x.new_zeros((), dtype=torch.float32)
     for c0 in range(0, s, chunk):
-        total = total + checkpoint(_ce_chunk, x[:, c0:c0 + chunk], head.table,
-                                   labels[:, c0:c0 + chunk], true_vocab,
-                                   use_reentrant=False)
+        total = total + shardctx.checkpoint(
+            _ce_chunk, x[:, c0:c0 + chunk], head.table,
+            labels[:, c0:c0 + chunk], true_vocab)
     return total / (b * s)
 
 

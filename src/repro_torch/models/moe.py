@@ -16,8 +16,13 @@ Held exactly as the reference holds them:
   them) pick the lower expert first, as ``jax.lax.top_k`` does;
   ``torch.topk`` breaks ties in another, unspecified order.
 * **Capacity.** Computed on the host from the shapes, with the
-  reference's float arithmetic; one block of tokens (outside a mesh the
-  reference's ``shardctx.batch_block_count`` is 1).
+  reference's float arithmetic, per block: the tokens are cut into
+  ``shardctx.batch_block_count`` blocks (1 outside a mesh, the number of
+  data-parallel shards on one), each sorted, ranked and capped on its
+  own, as the reference's block-local dispatch does.  On a mesh the
+  routing, dispatch and combine run on each rank's blocks
+  (``shardctx.local``) and the expert FFN on experts sharded over
+  ``model``.
 * **Combine order.** Each token's k contributions are summed in a fixed
   order (back to (T, K, D), then a sum over K), never with
   ``index_add_``/``scatter_add_``, whose CUDA atomics add in no fixed
@@ -34,9 +39,13 @@ without a host sync.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models import shardctx
 
 
 class MoE(nn.Module):
@@ -68,15 +77,32 @@ def capacity(tokens: int, experts_per_token: int, num_experts: int,
     return -(-cap // 8) * 8
 
 
+def _slots(flat_e: torch.Tensor, *, cap: int, num_experts: int
+           ) -> torch.Tensor:
+    """Each block's dispatch rows: ``flat_e`` (nb, n) expert ids of a
+    block's assignments in order → (nb, n) rows ``expert·cap + rank``,
+    ``E·cap`` past the expert's capacity (the rank from a stable sort
+    and a binary search, within the block)."""
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    rank = (torch.arange(flat_e.shape[1], device=flat_e.device)
+            - torch.searchsorted(sorted_e, sorted_e, side="left"))
+    dest = torch.where(rank < cap, sorted_e * cap + rank, num_experts * cap)
+    # back to assignment order: slot[order[i]] = dest[i]
+    return torch.empty_like(dest).scatter_(1, order, dest)
+
+
 def route(router: torch.Tensor, xt: torch.Tensor, *, num_experts: int,
-          experts_per_token: int, capacity_factor: float):
-    """Routing of the flat tokens ``xt`` (T, D).
+          experts_per_token: int, capacity_factor: float, blocks: int = 1):
+    """Routing of the flat tokens ``xt`` (T, D), in ``blocks`` equal
+    blocks of consecutive tokens with a capacity each (one block per
+    data-parallel shard on a mesh, ``shardctx.batch_block_count``).
 
     Returns (probs (T, E) float32, weights (T, K) float32 summing to 1 per
     token, experts (T, K) int64, slot (T·K,) int64, cap): ``slot[t·K + j]``
-    is the row of the flattened (E·cap, D) dispatch buffer that token t's
-    j-th assignment fills, or ``E·cap`` when it overflowed its expert's
-    capacity and is dropped.
+    is the row of its block's flattened (E·cap, D) dispatch buffer that
+    token t's j-th assignment fills, or ``E·cap`` when it overflowed its
+    expert's capacity and is dropped.
     """
     e, k = num_experts, experts_per_token
     t = xt.shape[0]
@@ -85,16 +111,37 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, num_experts: int,
     top_p, top_e = top_p[:, :k], top_e[:, :k]
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
 
-    cap = capacity(t, k, e, capacity_factor)
-    flat_e = top_e.reshape(t * k)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    rank = (torch.arange(t * k, device=xt.device)
-            - torch.searchsorted(sorted_e, sorted_e, side="left"))
-    dest = torch.where(rank < cap, sorted_e * cap + rank, e * cap)
-    # back to assignment order: slot[order[i]] = dest[i]
-    slot = torch.empty_like(dest).scatter_(0, order, dest)
-    return probs, top_p, top_e, slot, cap
+    cap = capacity(t // blocks, k, e, capacity_factor)
+    slot = shardctx.local(
+        functools.partial(_slots, cap=cap, num_experts=e),
+        (top_e.reshape(blocks, (t // blocks) * k),), (("batch", None),),
+        (0,))
+    return probs, top_p, top_e, slot.reshape(t * k), cap
+
+
+def _dispatch(xb: torch.Tensor, slot: torch.Tensor, *, k: int, rows: int
+              ) -> torch.Tensor:
+    """(nb, T_b, D) tokens and their (nb, T_b·K) slots → (nb, rows, D)
+    dispatch buffers; row ``rows`` of each block collects the dropped
+    assignments and is cut off."""
+    nb, tb, d = xb.shape
+    src = xb[:, :, None].expand(nb, tb, k, d).reshape(nb * tb * k, d)
+    at = slot + torch.arange(nb, device=xb.device)[:, None] * (rows + 1)
+    disp = xb.new_zeros((nb * (rows + 1), d)).index_copy_(0, at.reshape(-1),
+                                                          src)
+    return disp.view(nb, rows + 1, d)[:, :rows]
+
+
+def _combine(out: torch.Tensor, slot: torch.Tensor, w: torch.Tensor, *,
+             k: int) -> torch.Tensor:
+    """(nb, rows, D) expert outputs → (nb, T_b, D): each assignment's
+    output × its weight × kept, summed over its token's K in order."""
+    nb, rows, d = out.shape
+    kept = (slot < rows).to(out.dtype)[..., None]
+    blk = torch.arange(nb, device=out.device)[:, None]
+    contrib = (out[blk, torch.clamp_max(slot, rows - 1)]
+               * w.to(out.dtype)[..., None] * kept)
+    return contrib.view(nb, -1, k, d).sum(dim=2)
 
 
 def moe_apply(moe: MoE, x: torch.Tensor, *, num_experts: int,
@@ -105,29 +152,41 @@ def moe_apply(moe: MoE, x: torch.Tensor, *, num_experts: int,
     b, s, d = x.shape
     e, k = num_experts, experts_per_token
     t = b * s
-    xt = x.reshape(t, d)
+    nb = shardctx.batch_block_count(t)
+    xt = shardctx.constrain(x.reshape(t, d), ("batch", None))
     probs, top_p, top_e, slot, cap = route(
         moe.router, xt, num_experts=e, experts_per_token=k,
-        capacity_factor=capacity_factor)
+        capacity_factor=capacity_factor, blocks=nb)
 
     # load-balance loss: E · Σ mean prob · top-1 share
     top1 = (top_e[:, :1] == torch.arange(e, device=x.device)).float()
     aux = e * torch.sum(probs.mean(dim=0) * top1.mean(dim=0))
 
-    # dispatch: row e·cap collects the dropped assignments and is cut off
-    disp = x.new_zeros((e * cap + 1, d)).index_copy_(
-        0, slot, xt[:, None].expand(t, k, d).reshape(t * k, d))
-    disp = disp[:e * cap].view(e, cap, d)
+    # dispatch within each block, then all-to-all to the experts
+    blocked = (("batch", None, None), ("batch", None))
+    slot = slot.reshape(nb, -1)
+    disp = shardctx.local(
+        functools.partial(_dispatch, k=k, rows=e * cap),
+        (xt.reshape(nb, t // nb, d), slot), blocked, (0,))
+    disp = shardctx.constrain(disp.reshape(nb, e, cap, d),
+                              ("batch", None, None, None))
+    disp_e = shardctx.constrain(
+        disp.transpose(0, 1).reshape(e, nb * cap, d),
+        ("experts", "batch", None))
 
     # expert FFN (swiglu), one batched product per projection
-    h = F.silu(torch.bmm(disp, moe.gate)) * torch.bmm(disp, moe.up)
-    out = torch.bmm(h, moe.down).view(e * cap, d)
+    h = F.silu(torch.bmm(disp_e, moe.gate)) * torch.bmm(disp_e, moe.up)
+    out = shardctx.constrain(torch.bmm(h, moe.down),
+                             ("experts", "batch", None))
+    out = shardctx.constrain(out.reshape(e, nb, cap, d).transpose(0, 1),
+                             ("batch", None, None, None))
 
-    # combine: each assignment's output × its weight × kept, summed over K
-    kept = (slot < e * cap).to(x.dtype)[:, None]
-    w = top_p.reshape(t * k, 1).to(x.dtype)
-    contrib = out[torch.clamp_max(slot, e * cap - 1)] * w * kept
-    y = contrib.view(t, k, d).sum(dim=1)
+    # combine within each block
+    y = shardctx.local(
+        functools.partial(_combine, k=k),
+        (out.reshape(nb, e * cap, d), slot, top_p.reshape(nb, -1)),
+        blocked[:1] + blocked[1:] * 2, (0,))
+    y = shardctx.constrain(y.reshape(t, d), ("batch", None))
     return y.reshape(b, s, d), aux
 
 

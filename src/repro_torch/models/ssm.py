@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import shardctx
 from repro_torch.models.layers import linear
 
 #: Mamba2's head width and causal-conv width.
@@ -195,10 +196,13 @@ def _mamba2_inner(params: Mamba2, xin, ssm_state, conv_state, *, d_model,
     proj = params.in_proj(xin)
     x, z, bmat, cmat, dt = torch.split(
         proj, [d_inner, d_inner, n_state, n_state, h], dim=-1)
+    x = shardctx.constrain(x, ("batch",) + (None,) * (x.ndim - 2) + ("ffn",))
     x, conv_state = _causal_conv(x, params.conv, conv_state)
     x = silu(x)
     b_, s_ = x.shape[:2]
     xh = x.reshape(b_, s_, h, MAMBA_HEADDIM)
+    if not decode:
+        xh = shardctx.constrain(xh, ("batch", "seq", "state", None))
     dt = F.softplus(dt.float() + params.dt_bias)               # (B, S, H)
     a = -torch.exp(params.A_log)                               # (H,) negative
     log_a = dt * a
@@ -214,6 +218,7 @@ def _mamba2_inner(params: Mamba2, xin, ssm_state, conv_state, *, d_model,
                                           init_state=ssm_state)
     y = y + xh * params.D[None, None, :, None]                 # float32
     y = y.reshape(b_, s_, d_inner)
+    y = shardctx.constrain(y, ("batch",) + (None,) * (y.ndim - 2) + ("ffn",))
     # Gated RMSNorm (Mamba2's norm before out_proj), in float32.
     y = y * silu(z)
     yf = y.float()

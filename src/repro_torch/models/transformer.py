@@ -37,19 +37,22 @@ Mamba2 layer of ``zamba`` (not the shared block), every mLSTM layer of
 ``xlstm`` (not the sLSTM).  :func:`prefill` and :func:`decode_step` run
 under ``torch.no_grad()`` and build no graph.
 
-Not ported yet (ROADMAP A.13): KV-head replication (``kv_replication !=
-1``, a launcher setting), which raises ``NotImplementedError``.
-:func:`param_count` counts every configuration, as the reference does.
+KV-head replication (``cfg.kv_replication``, a launcher setting for
+tensor parallelism) applies where the reference applies it: in
+:func:`forward` and :func:`loss_fn`; :func:`prefill` keeps r = 1, so the
+decode cache holds the true KV heads.  On a device mesh
+(``models.shardctx.activation_sharding``) the hidden state is laid out
+at the reference's ``constrain`` sites.  :func:`param_count` counts
+every configuration, as the reference does.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, ssm, xlstm
+from repro_torch.models import attention, shardctx, ssm, xlstm
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm,
                                        chunked_cross_entropy, mlp_param_count)
 from repro_torch.models.moe import MoE, moe_apply
@@ -60,13 +63,6 @@ MOE_AUX_COEF = 0.01
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.kv_replication != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: KV-head replication (a launcher setting) not "
-            f"ported yet (ROADMAP A.13)")
 
 
 def _xlstm_group_sizes(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -135,7 +131,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
         super().__init__()
-        _check_supported(cfg)
         dev = torch.device("meta") if str(device) == "meta" else \
             resolve_device(device)
         # Shapes first (on the meta device), then storage on `dev`: no
@@ -231,10 +226,12 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 # ======================================================================
 def _layer(cfg: ModelConfig, layer: AttnLayer, x: torch.Tensor,
            positions: torch.Tensor, *, return_kv: bool = False):
+    x = shardctx.constrain(x, ("batch", "seq", None))
     h = attention.attention_block(
         layer.attn, layer.ln1(x), positions, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, return_kv=return_kv)
+        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+        kv_repeat=cfg.kv_replication, return_kv=return_kv)
     if return_kv:
         h, kv = h
     x = x + h * cfg.residual_scale
@@ -306,7 +303,7 @@ def _blocks(cfg: ModelConfig, model: LM, x: torch.Tensor,
 
     def run(fn, *args):
         if remat:
-            return checkpoint(fn, *args, use_reentrant=False)
+            return shardctx.checkpoint(fn, *args)
         return fn(*args)
 
     def attn(layer, x, i, rematted):
@@ -374,8 +371,8 @@ def forward(cfg: ModelConfig, model: LM, batch: dict, *,
     """→ (logits (B, S, V) float32, the layers' summed MoE auxiliary loss,
     float32: 0 without experts).  ``batch["tokens"]`` (B, S) ints, or
     ``batch["embeddings"]`` (B, S, D) for ``input_mode="embeddings"``."""
-    _check_supported(cfg)
-    x = _embed(cfg, model, _batch_inputs(cfg, batch))
+    x = shardctx.constrain(_embed(cfg, model, _batch_inputs(cfg, batch)),
+                           ("batch", "seq", None))
     b, s = x.shape[:2]
     x, aux = _blocks(cfg, model, x, _positions(b, s, x.device), remat=remat)
     return _logits(cfg, model, x), aux
@@ -387,8 +384,8 @@ def loss_fn(cfg: ModelConfig, model: LM, batch: dict, *,
     ``MOE_AUX_COEF`` · moe_aux, {"ce", "moe_aux"}), float32 scalars.
     ``batch`` as :func:`forward` takes it, plus ``batch["labels"]`` (B, S)
     ints."""
-    _check_supported(cfg)
-    x = _embed(cfg, model, _batch_inputs(cfg, batch))
+    x = shardctx.constrain(_embed(cfg, model, _batch_inputs(cfg, batch)),
+                           ("batch", "seq", None))
     b, s = x.shape[:2]
     x, aux = _blocks(cfg, model, x, _positions(b, s, x.device), remat=remat)
     x = model.final_ln(x)
@@ -409,8 +406,8 @@ def prefill(cfg: ModelConfig, model: LM, batch: dict, max_len: int, *,
     (recurrent states are position-free); ``last_only`` keeps only the
     final position's logits (B, 1, V).  ``batch`` as :func:`forward`
     takes it."""
-    _check_supported(cfg)
-    x = _embed(cfg, model, _batch_inputs(cfg, batch))
+    x = shardctx.constrain(_embed(cfg, model, _batch_inputs(cfg, batch)),
+                           ("batch", "seq", None))
     b, s = x.shape[:2]
     if max_len < s:
         raise ValueError(f"max_len={max_len} below the prompt length {s}")
@@ -437,9 +434,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     3, d_inner), attn_k and attn_v (g, B, max_len, KVH, hd), and
     ssm_tail, conv_tail over the tail layers; ``xlstm`` mlstm (g, k − 1,
     B, H, Dh, Dh + 1) float32 and slstm, the tuple (h, c, n, m) of (g, B,
-    H, Dh) float32."""
-    _check_supported(cfg)
-    dev = resolve_device(device)
+    H, Dh) float32.  ``device="meta"`` gives the shapes and dtypes
+    alone."""
+    dev = torch.device("meta") if str(device) == "meta" else \
+        resolve_device(device)
     dt = _dtype(cfg)
     hd = cfg.resolved_head_dim
     if cfg.block_pattern == "attn":
@@ -496,7 +494,6 @@ def decode_step(cfg: ModelConfig, model: LM, cache: dict, inputs,
     for ``input_mode="embeddings"``; ``pos`` the position the new KV is
     written at (recurrent states are position-free).  Returns (logits (B,
     V) float32, the cache), which is updated in place."""
-    _check_supported(cfg)
     pos = int(pos)
     k_buf, v_buf = _kv_bufs(cfg, cache)
     if k_buf is not None and not 0 <= pos < k_buf.shape[2]:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import shardctx
 from repro_torch.models.layers import groupnorm, linear
 from repro_torch.models.ssm import chunked_linear_rnn, linear_rnn_decode, silu
 
@@ -58,6 +59,9 @@ def _mlstm_qkvif(params: MLSTM, x: torch.Tensor, num_heads: int):
     q = params.wq(x).reshape(b, s, num_heads, dh) / _qk_scale(dh, x.dtype)
     k = params.wk(x).reshape(b, s, num_heads, dh)
     v = params.wv(x).reshape(b, s, num_heads, dh)
+    # few heads (4): the key/query feature dim shards over "model" instead
+    q = shardctx.constrain(q, ("batch", "seq", None, "state"))
+    k = shardctx.constrain(k, ("batch", "seq", None, "state"))
     gif = params.wif(x.float())                                # (B, S, 2H)
     i_raw, f_raw = gif.chunk(2, dim=-1)
     log_a = F.logsigmoid(f_raw + params.f_bias)                # (B, S, H)

@@ -9,14 +9,21 @@ Quantizing a gradient biases the update; error feedback keeps a residual
     e'  = u − dequantize(q)
 
 Two codecs: ``bf16`` (2 bytes, no scale) and ``int8`` (1 byte and a
-float32 scale per leaf), with the reference's arithmetic.  The
-reference's ``make_compressed_allreduce`` wraps them in a ``shard_map``
-psum over a device mesh; it comes with the port's mesh (ROADMAP A.13 item
-6, ``launch/mesh.py``).
+float32 scale per leaf), with the reference's arithmetic.
+:func:`make_compressed_allreduce` runs them over the data-parallel axes
+of a device mesh, as the reference's ``shard_map`` psum does: each rank
+compresses its own slice, and the dequantized payloads are summed by
+``all_reduce`` over the axes' process groups.
 """
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.launch.mesh import axis_sizes
 
 
 def init_error_state(grads: dict) -> dict:
@@ -49,4 +56,39 @@ def compress_leaf(g: torch.Tensor, e: torch.Tensor, codec: str):
     return q, scale, u - _dequantize(q, scale, codec)
 
 
-__all__ = ["compress_leaf", "init_error_state"]
+def make_compressed_allreduce(mesh, axes: Sequence[str],
+                              codec: str = "bf16"):
+    """``(grads, err) -> (mean, err')`` over the ``axes`` of ``mesh`` (a
+    ``DeviceMesh``), for dicts of tensors.
+
+    As the reference's: each leaf is a DTensor with a leading "shard"
+    dimension of size ∏ |axes| — shard k's gradient and residual —
+    sharded over ``axes``, so each rank holds its (1, ...) slice.  The
+    mean over the shards comes back replicated, without the leading dim;
+    the new residuals keep it, laid out as ``err``'s."""
+    axes = tuple(axes)
+    sizes = axis_sizes(mesh)
+    nshards = 1
+    for a in axes:
+        nshards *= sizes[a]
+
+    def one(g: DTensor, e: DTensor):
+        q, scale, e_new = compress_leaf(g.to_local()[0], e.to_local()[0],
+                                        codec)
+        total = _dequantize(q, scale, codec)
+        for a in axes:
+            dist.all_reduce(total, group=mesh.get_group(a))
+        mean = DTensor.from_local(total / nshards, mesh,
+                                  [Replicate()] * mesh.ndim,
+                                  run_check=False)
+        return mean, DTensor.from_local(e_new[None], mesh, e.placements,
+                                        run_check=False)
+
+    def allreduce(grads: dict, err: dict) -> tuple[dict, dict]:
+        out = {n: one(g, err[n]) for n, g in grads.items()}
+        return ({n: o[0] for n, o in out.items()},
+                {n: o[1] for n, o in out.items()})
+    return allreduce
+
+
+__all__ = ["compress_leaf", "init_error_state", "make_compressed_allreduce"]

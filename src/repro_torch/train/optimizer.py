@@ -17,6 +17,13 @@ place (parameters, moments, master and count), and the same objects are
 returned.  The arithmetic is the reference's, leaf by leaf, in float32;
 ``torch._foreach_*`` runs it over groups of leaves (the reference's
 optimizer is plain jnp, outside any kernel).
+
+On a device mesh the leaves may be DTensors (``launch.sharding.place``):
+the global norm all-reduces each leaf's sum of squares, and the
+elementwise update runs on each rank's shards of the gradient (laid out
+as its moments first), moments and master; each parameter then takes
+its master in its own layout (an all-gather over ``data`` for ZeRO-2
+masters and TP-only parameters).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +105,37 @@ def _device(named: dict) -> torch.device:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt(Σ x²) over every leaf (a dict of tensors, or a sequence), in
-    float32."""
+    float32; a DTensor leaf's sum is all-reduced over its mesh, so the
+    norm is a plain tensor, the same on every rank."""
     leaves = list(tree.values()) if isinstance(tree, dict) else list(tree)
     total = torch.zeros((), dtype=torch.float32,
                         device=leaves[0].device if leaves else "cpu")
     for x in leaves:
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
+        sq = torch.sum(torch.square(x.to(torch.float32)))
+        total = total + (sq.full_tensor() if isinstance(sq, DTensor)
+                         else sq)
     return torch.sqrt(total)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (its storage: in-place updates land
+    in the DTensor), a plain tensor itself."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _laid_as(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Gradient ``g`` in the layout of the state leaf ``like``."""
+    if isinstance(like, DTensor) and tuple(g.placements) != tuple(
+            like.placements):
+        return g.redistribute(like.device_mesh, like.placements)
+    return g
+
+
+def _assign(p: torch.Tensor, master: torch.Tensor) -> None:
+    """``p`` ← ``master`` cast to ``p``'s dtype, in ``p``'s layout."""
+    if isinstance(p, DTensor):
+        master = master.redistribute(p.device_mesh, p.placements)
+    p.copy_(master)
 
 
 #: Elements of float32 scratch per group of leaves in
@@ -134,18 +166,20 @@ def apply_updates(cfg: AdamWConfig, params, grads: dict, state: dict
     names = list(named)
     count = state["count"]
     count += 1
-    lr = schedule_fn(cfg)(count)
+    lr = schedule_fn(cfg)(_local(count))
     gnorm = global_norm([grads[n] for n in names])
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
-    step = count.to(torch.float32)
+    step = _local(count).to(torch.float32)
     bc1 = 1 - torch.pow(cfg.b1, step)
     bc2 = 1 - torch.pow(cfg.b2, step)
     for group in _groups(names, named):
-        g = [grads[n].to(torch.float32, copy=True) for n in group]
-        m = [state["m"][n] for n in group]
-        v = [state["v"][n] for n in group]
-        w = [state["master"][n] for n in group]
+        g = [_local(_laid_as(grads[n], state["m"][n]).to(torch.float32,
+                                                          copy=True))
+             for n in group]
+        m = [_local(state["m"][n]) for n in group]
+        v = [_local(state["v"][n]) for n in group]
+        w = [_local(state["master"][n]) for n in group]
         torch._foreach_mul_(g, scale)
         torch._foreach_mul_(m, cfg.b1)
         torch._foreach_add_(m, g, alpha=1 - cfg.b1)
@@ -162,8 +196,8 @@ def apply_updates(cfg: AdamWConfig, params, grads: dict, state: dict
         torch._foreach_mul_(delta, lr)
         torch._foreach_sub_(w, delta)
         del delta
-        for n, master in zip(group, w):
-            named[n].copy_(master)
+        for n in group:
+            _assign(named[n], state["master"][n])
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
 

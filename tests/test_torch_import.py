@@ -53,7 +53,9 @@ def test_port_has_modules():
             "repro_torch.lint.rules.fault", "repro_torch.data.tokens",
             "repro_torch.train", "repro_torch.train.optimizer",
             "repro_torch.train.step", "repro_torch.train.checkpoint",
-            "repro_torch.train.compress"} <= names
+            "repro_torch.train.compress", "repro_torch.launch",
+            "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.models.shardctx"} <= names
 
 
 def test_import_loads_neither_jax_nor_repro():
@@ -76,7 +78,8 @@ def test_training_modules_leave_jax_and_repro_out():
     the models they import) loads neither package."""
     mods = ["repro_torch.data.tokens", "repro_torch.train.optimizer",
             "repro_torch.train.step", "repro_torch.train.checkpoint",
-            "repro_torch.train.compress"]
+            "repro_torch.train.compress", "repro_torch.launch.sharding",
+            "repro_torch.models.shardctx"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

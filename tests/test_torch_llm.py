@@ -190,22 +190,6 @@ def test_model_holds_param_count_plus_norm_scales(arch):
         cfg.param_count() + _uncounted(cfg)
 
 
-@pytest.mark.parametrize("where", ["LM", "init_cache", "forward"])
-def test_kv_replication_still_raises(where):
-    """Every block pattern runs; KV-head replication (a launcher setting
-    of the meshes, ROADMAP A.13) does not yet."""
-    cfg = ARCHS["granite-3-2b"].reduced()
-    bad = dataclasses.replace(cfg, kv_replication=2)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        if where == "LM":
-            T.LM(bad, device=CPU)
-        elif where == "init_cache":
-            T.init_cache(bad, 1, 4, device=CPU)
-        else:
-            T.forward(bad, T.LM(cfg, device=CPU),
-                      {"tokens": torch.zeros((1, 4), dtype=torch.long)})
-
-
 # ----------------------------------------------------------------------
 # Layers, with the reference's weights.
 # ----------------------------------------------------------------------

@@ -326,10 +326,12 @@ def test_loss_decreases():
 
 def test_step_refusals():
     cfg = ARCHS["granite-3-2b"].reduced()
-    with pytest.raises(NotImplementedError, match="A.13 item 6"):
-        step_lib.make_train_step(cfg, opt_lib.AdamWConfig(), grad_specs={})
     state = step_lib.init_train_state(
         cfg, generator=torch.Generator().manual_seed(0), device=CPU)
+    even = np.zeros((2, 8), np.int32)
+    with pytest.raises(ValueError, match="activation_sharding"):
+        step_lib.make_train_step(cfg, opt_lib.AdamWConfig(), grad_specs={})(
+            state, {"tokens": even, "labels": even})
     toks = np.zeros((3, 8), np.int32)
     with pytest.raises(ValueError, match="multiple"):
         step_lib.make_train_step(cfg, opt_lib.AdamWConfig(),
