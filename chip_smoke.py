@@ -164,8 +164,10 @@ Phases, each printing one JSON line (``"phase": ...``):
    below its own before them); the fourth step again from the same
    state (copied to the host and back) at ``microbatches=2`` (loss and
    gradient norm within ``MB_RTOL``); one step under ``torch.profiler``
-   (device time by kind of kernel) and one under ``SyncSentinel`` (ATen
-   syncs from ``train/`` and ``models/``).  Phase train_checkpoint: the
+   (device time by kind of kernel), one under ``SyncSentinel`` (ATen
+   syncs from ``train/`` and ``models/``) and one under
+   ``roofline.opcount.CostCounter`` (the step's counted FLOPs, which
+   must equal the dry run's below).  Phase train_checkpoint: the
    same model cut to 2 layers, two steps, a save, two more; the restored
    state through the same two steps: master weights equal bit for bit.
    Phase train_kvrep: the same model and state with ``kv_replication=2``
@@ -184,11 +186,23 @@ Phases, each printing one JSON line (``"phase": ...``):
    ``local_map``; at the 2-layer cut, ``save`` and ``restore(shardings=)``
    bit-equal with every leaf on the mesh; ``make_compressed_allreduce``
    over the one rank, both codecs, equal bit for bit to
-   ``compress_leaf``'s dequantized payload.
+   ``compress_leaf``'s dequantized payload.  Then phase roofline, one
+   line per LLM path timed above (the granite-3-2b, qwen3-moe-30b-a3b
+   and zamba2-7b prefills, one granite decode step, the granite train
+   step at 8 × 1,024): ``roofline.dry_run`` on the ``meta`` device at
+   the shape the phase ran (FLOPs by dtype, bytes, collective bytes,
+   the terms under ``roofline.HW`` and their bottleneck,
+   ``model_flops`` and ``useful_flops_ratio``), the phase's median time
+   in this process, ``roofline_share`` (the largest term, the compute
+   term with each dtype's FLOPs at its own peak, over the median) and
+   ``model_flops`` over the median × the bf16 peak; for the train step
+   also the card count of the real step, whose FLOPs must equal the dry
+   run's.
 9. timing  — each kernel's time on the largest dispatch of the path its
    launches are counted on (CUDA graph of repeated wrapper calls, so host
    overhead is excluded), its plain version's time, and its bound on this
-   card; the row-loop kernels at the shapes of their chunk twins (the
+   card (``roofline.kernels``: the work's bytes and operations over the
+   card's peaks); the row-loop kernels at the shapes of their chunk twins (the
    compact kernels with their grid's block count); the flash kernel at
    the llm phase's prefill shape, beside ``scaled_dot_product_attention``
    (``library_ms``, timed here only), the float32 flash kernel at the
@@ -291,20 +305,6 @@ HYBRID_SPREAD_FACTOR = 2.0
 #: yardstick) against the plain version: a sanity bound that it computes
 #: the same function on the same layout.
 LIBRARY_ATOL = 2.0 ** -4
-
-#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
-#: outside the tensor cores, bf16 on the tensor cores, and HBM3
-#: bandwidth.
-PEAK_F32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
-
-#: float32 operations of the kernels' interval solve (csrc/distthresh.cu:
-#: ``interval_solve``): the temporal test for every pair, the rest of the
-#: quadratic path for a pair whose extents overlap.  Per-segment velocity
-#: and anchor terms are computed once per row / column and not counted.
-OPS_PER_PAIR = 3
-OPS_PER_OVERLAP = 45
 
 #: The TPU kernel (its ``pallas_call`` line) each CUDA kernel replaces;
 #: the row-loop kernels replace the same calls with ``append="rowloop"``.
@@ -2099,7 +2099,7 @@ def llm_path(dev, card):
           "argmax_agree": f"{agree}/{b}",
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           "card": card})
-    return cfg.num_layers, flash_shape(cfg, b, runs["bucket"])
+    return cfg.num_layers, flash_shape(cfg, b, runs["bucket"]), runs
 
 
 def flash_shape(cfg, b: int, s: int) -> dict:
@@ -2169,12 +2169,21 @@ def serve_runs(cfg, model, dev, flash=None, profile_prefill=True):
                                      zip(prompts, outs[0])],
               "prefill's first token differs from generate's")
         reset_launches()
+        # One CUDA event between steps: each step's time on the card's
+        # clock (the host runs ahead of the card or the card waits on it;
+        # either way the gap is the step's).
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(n_new + 1)]
         t0 = time.perf_counter()
+        marks[0].record()
         for i in range(n_new):
             step, cache = T.decode_step(cfg, model, cache, nxt, s + i)
             nxt = torch.argmax(step, dim=-1)
+            marks[i + 1].record()
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
+        decode_step_s = [a.elapsed_time(b) * 1e-3
+                         for a, b in zip(marks, marks[1:])]
         check(not any(launches().values()), "decode launched a kernel")
         # One more decode step and one prefill under the profiler: device
         # busy share and device work per call.
@@ -2184,9 +2193,19 @@ def serve_runs(cfg, model, dev, flash=None, profile_prefill=True):
         pre_prof = "not profiled" if not profile_prefill else profile_line(
             lambda: T.prefill(cfg, model, batch, max_len=s,
                               last_only=True))[1]
+        # Two more prefills as the first was timed: the roofline phase's
+        # median of three.
+        prefill_runs_s = [prefill_s]
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.prefill(cfg, model, batch, max_len=s + n_new, last_only=True)
+            torch.cuda.synchronize()
+            prefill_runs_s.append(time.perf_counter() - t0)
     return {"prompts": b, "prompt_tokens": [int(n) for n in lens],
             "bucket": s, "new_tokens": n_new, "generate_wall_s": walls,
             "prefill_s": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
+            "prefill_runs_s": prefill_runs_s, "decode_step_s": decode_step_s,
             "decode_s": decode_s, "decode_tokens_per_s": b * n_new / decode_s,
             "profile": {"decode_step": step_prof, "prefill": pre_prof},
             "launches_generate": want,
@@ -2366,7 +2385,7 @@ def llm_moe_path(dev, card):
           "sentinel": sentinel,
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           "card": card})
-    return layers, flash_shape(cfg, b, s)
+    return layers, flash_shape(cfg, b, s), runs
 
 
 def llm_embed_path(dev, card):
@@ -2558,7 +2577,7 @@ def llm_hybrid_path(dev, card):
           "sentinel": sentinel,
           "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
           "card": card})
-    return groups, flash_shape(cfg, b, s)
+    return groups, flash_shape(cfg, b, s), runs
 
 
 # ----------------------------------------------------------------------
@@ -2642,12 +2661,14 @@ def train_path(dev, card):
     (copied to the host and back) at ``microbatches=2``: loss and
     grad_norm within ``MB_RTOL``.  One more step under
     ``torch.profiler`` (device time by kind of kernel), one under
-    ``SyncSentinel`` (the ATen syncs from ``train/`` and ``models/``).
-    Returns the flash kernels' launches counted in the last of the
-    ``TRAIN_STEPS`` steps."""
+    ``SyncSentinel`` (the ATen syncs from ``train/`` and ``models/``), one
+    under ``roofline.opcount.CostCounter``.  Returns the flash kernels'
+    launches counted in the last of the ``TRAIN_STEPS`` steps, its wall,
+    and the steps' walls with the counted step's costs."""
     from repro_torch.configs import ARCHS
     from repro_torch.lint.sentinel import SyncSentinel
     from repro_torch.models import transformer as T
+    from repro_torch.roofline.opcount import CostCounter
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import step as step_lib
     free_card()
@@ -2722,6 +2743,14 @@ def train_path(dev, card):
         state, m6 = step(state, batches[TRAIN_STEPS + 1])
     torch.cuda.synchronize()
     rep = sen.report()
+    # One more step under the op counter: the FLOPs, bytes and declared
+    # kernels of the real step on the card (phase roofline holds its
+    # FLOPs to the dry run's).
+    counted_s = time.perf_counter()
+    with CostCounter() as counter:
+        state, _ = step(state, batches[TRAIN_STEPS + 1])
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - counted_s
     later = [float(m5["loss"]), float(m6["loss"])]
     ce_ms = ce_timing(cfg, model, dev)
     sites = aten_sites(rep)
@@ -2745,7 +2774,9 @@ def train_path(dev, card):
     del state, model
     free_card()
     train_checkpoint(dev, card)
-    return steps[-1]["launches"], steps[-1]["wall_s"]
+    return steps[-1]["launches"], steps[-1]["wall_s"], {
+        "step_s": [x["wall_s"] for x in steps],
+        "card_count": counter.costs(), "card_count_wall_s": counted_s}
 
 
 def ce_timing(cfg, model, dev) -> float:
@@ -3170,6 +3201,85 @@ def llm_xlstm_path(dev, card):
 # ----------------------------------------------------------------------
 # Kernel timing at the main path's shapes.
 # ----------------------------------------------------------------------
+def roofline_line(rec: dict, runs_s: list, path: str, card: str,
+                  **extra) -> dict:
+    """The phase roofline line of one path: the dry run's counts and
+    terms, the phase's median time over ``runs_s`` (seconds), and the
+    shares."""
+    from repro_torch.roofline import HW
+    rf = rec["roofline"]
+    med = float(np.median(runs_s))
+    bound_s = max(rec["compute_s_by_dtype"], rf["memory_s"],
+                  rf["collective_s"])
+    line = {"phase": "roofline", "path": path, "arch": rec["arch"],
+            "kind": rec["kind"], "batch": rec["batch"], "seq": rec["seq"],
+            "max_len": rec["max_len"], "tokens": rec["tokens"],
+            "flops_by_dtype": rec["flops_by_dtype"],
+            "flops": rf["hlo_flops_global"], "bytes": rf["hlo_bytes_global"],
+            "collective_bytes": rec["collectives_per_device"],
+            "terms_s": {k: rf[k] for k in ("compute_s", "memory_s",
+                                             "collective_s")},
+            "bottleneck": rf["bottleneck"],
+            "compute_s_by_dtype": rec["compute_s_by_dtype"],
+            "bound_s": bound_s,
+            "bound_by": ("compute" if bound_s == rec["compute_s_by_dtype"]
+                         else "memory" if bound_s == rf["memory_s"]
+                         else "collective"),
+            "model_flops": rf["model_flops"],
+            "useful_flops_ratio": rf["useful_flops_ratio"],
+            "kernels_declared": {k: v["calls"]
+                                 for k, v in rec["kernels"].items()},
+            "count_s": rec["compile_s"],
+            "peak_estimate_gib": rec["memory"]["peak_estimate_bytes"] / 2**30,
+            "measured_median_s": med, "measured_runs_s": runs_s,
+            "roofline_share": bound_s / med,
+            "roofline_share_at_bf16_peak": max(
+                rf["compute_s"], rf["memory_s"], rf["collective_s"]) / med,
+            "model_flops_share_of_peak": rf["model_flops"] / (
+                med * HW["peak_flops"]), **extra, "card": card}
+    emit(line)
+    return line
+
+
+def roofline_path(serve: dict, train: dict, card: str) -> None:
+    """Phase roofline: each LLM path timed above, dry-run on the ``meta``
+    device at the shape its phase ran (``roofline.dry_run``) beside the
+    phase's median in this process; the train step also as the card
+    counted it (phase train), whose FLOPs must equal the dry run's."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.roofline import dry_run
+    for arch, runs in serve.items():
+        cfg, b, s = ARCHS[arch], runs["prompts"], runs["bucket"]
+        max_len = s + runs["new_tokens"]
+        roofline_line(dry_run(cfg, "prefill", b, s, max_len=max_len),
+                      runs["prefill_runs_s"], f"{arch} prefill", card)
+        if arch == LLM_ARCH:
+            roofline_line(dry_run(cfg, "decode", b, s, max_len=max_len),
+                          runs["decode_step_s"], f"{arch} decode step",
+                          card)
+    rec = dry_run(ARCHS[TRAIN_ARCH], "train", TRAIN_BATCH, TRAIN_SEQ,
+                  remat=True)
+    got = train["card_count"]
+    check(got.flops == rec["cost"]["flops_per_device"],
+          f"train step counted on the card: {got.flops} FLOPs "
+          f"({got.flops_by_dtype}), the dry run {rec['flops_by_dtype']}")
+    roofline_line(rec, train["step_s"], f"{TRAIN_ARCH} train step", card,
+                  card_count={
+                      "flops": got.flops,
+                      "flops_by_dtype": got.flops_by_dtype,
+                      "bytes": got.traffic_bytes,
+                      "bytes_over_dry_run": got.traffic_bytes
+                      - rec["cost"]["traffic_bytes_per_device"],
+                      "collective_bytes": got.collective_bytes["total"],
+                      "kernels_declared": {k: v["calls"] for k, v in
+                                           got.kernels.items()},
+                      "warnings": got.warnings[:5],
+                      "wall_s": train["card_count_wall_s"],
+                      "note": "the whole step: loss_fn forward and "
+                              "backward as the dry run, plus the batch "
+                              "upload and the AdamW update (no products)"})
+
+
 def graph_ms(fn, iters: int = 20, reps: int = 3) -> float:
     """Device milliseconds per ``fn()`` call: ``iters`` calls captured in
     one CUDA graph, replayed ``reps`` times; the best replay counts."""
@@ -3221,12 +3331,6 @@ def pair_work(e, qt, tiles=None, cb=256, qb=256):
     return int(mask.sum()), int(((lo <= hi) & mask).sum())
 
 
-def bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak_ops
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
-        "operations"
-
-
 def batch_inputs(db, pruning, accept=None):
     """The largest dispatch of ``db``'s plan under ``pruning`` (the first
     by interactions that ``accept(entries, queries)`` takes): host slices
@@ -3254,13 +3358,15 @@ def kernel_timing(dev, s1, c3, counts, card):
     from repro_torch.kernels import _build
     from repro_torch.kernels import distthresh as dt
     from repro_torch.kernels import ops
+    from repro_torch.roofline import kernels as costs
     table = []
     d = np.float32(s1.scenario_d)
     e_np, q_np, e, qt = batch_inputs(s1, "spatial")
     c, q = e.shape[0], qt.shape[1]
 
-    def row(name, shape, err, ms, plain_ms, b, **extra):
+    def row(name, shape, err, ms, plain_ms, cost, **extra):
         label, n = counts[name]
+        b = costs.bound_ms(cost.flops, cost.bytes)
         return {"name": name, "route": "cuda", "source": source(name),
                 "replaces": REPLACES[name], "launches": n,
                 "launches_counted_on": label, "shape": shape, **extra,
@@ -3291,8 +3397,7 @@ def kernel_timing(dev, s1, c3, counts, card):
             graph_ms(lambda: dt.distthresh_compact(
                 e, qt, d, capacity=cap, append=append, device=dev, **arm)),
             event_ms(lambda: plain_fn(e, qt, d, capacity=cap, **arm)),
-            bound(32 * (c + q) + 16 * hits + 8,
-                  OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
+            costs.distthresh_cost(c, q, pairs, overlap, hits, "compact"),
             armed=bool(arm),
             grid_blocks=-(-c // 256) * -(-q // 256) * blocks_per_tile(
                 c, q, append)))
@@ -3309,8 +3414,7 @@ def kernel_timing(dev, s1, c3, counts, card):
         "distthresh_dense", [c, q], err,
         graph_ms(lambda: dt.distthresh_dense(e, qt, d, device=dev)),
         event_ms(lambda: dt.distthresh_dense_plain(e, qt, d)),
-        bound(32 * (c + q) + 9 * c * q,
-              OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
+        costs.distthresh_cost(c, q, pairs, overlap, 0, "dense"),
         grid_blocks=_build.load().distthresh_dense_blocks(c, q)))
 
     # distthresh_compact_live and its row-loop twin, on the largest C3
@@ -3345,8 +3449,8 @@ def kernel_timing(dev, s1, c3, counts, card):
                 e, qt, d3, *lists, capacity=cap, append=append,
                 device=dev)),
             event_ms(lambda: plain_fn(e, qt, d3, *lists, capacity=cap)),
-            bound(32 * (c + q) + 8 * len(live[0]) + 16 * hits + 4,
-                  OPS_PER_PAIR * pairs + OPS_PER_OVERLAP * overlap),
+            costs.distthresh_cost(c, q, pairs, overlap, hits, "live",
+                                  slots=len(live[0])),
             live_tiles=n_live,
             grid_blocks=len(live[0]) * blocks_per_tile(c, q, append)))
     emit({"phase": "timing", "card": card,
@@ -3366,6 +3470,7 @@ def flash_timing(dev, shape, n_launches, dtype=None):
     import torch.nn.functional as F
 
     from repro_torch.kernels import flashattn as fa
+    from repro_torch.roofline import kernels as costs
     gen = torch.Generator(device=dev).manual_seed(7)
     bh, bkv, s, t, hd, g = (shape[k] for k in ("bh", "bkv", "s", "t", "hd",
                                                 "g"))
@@ -3396,13 +3501,10 @@ def flash_timing(dev, shape, n_launches, dtype=None):
     plain_ms = event_ms(lambda: fa.flashattn_plain(q, k, v, g=g))
     library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         lib_q, lib_k, lib_v, is_causal=True, enable_gqa=True))
-    # Work this call needs: each query row i (at key position t - s + i)
-    # meets t - s + i + 1 keys; 2·hd flops for the score and 2·hd for the
-    # value product per (row, key) pair.
-    pairs = bh * sum(t - s + i + 1 for i in range(s))
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    b_ms, b_by = bound(nbytes, 4 * hd * pairs,
-                       PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+    # Work this call needs: 4·hd FLOPs per causal (row, key) pair, q, k
+    # and v read and the output written once.
+    work = costs.flash_fwd_cost(bh, bkv, s, t, hd, dtype)
+    b_ms, b_by = costs.bound_ms(work.flops, work.bytes)
     return {"name": "flashattn", "route": "cuda",
             "source": source("flashattn"), "replaces": REPLACES["flashattn"],
             "launches": n_launches, "launches_counted_on":
@@ -3456,6 +3558,7 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
 
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import flashattn as fa
+    from repro_torch.roofline import kernels as costs
     gen = torch.Generator(device=dev).manual_seed(11)
     bkv, g, s, hd = TRAIN_FLASH
     bh, t, dtype = bkv * g, s, torch.bfloat16
@@ -3507,13 +3610,11 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
               f"profiler: {rec['n']} {name} launches in {n_calls} calls")
         kernel_ms[name] = rec["us"] * 1e-3 / rec["n"]
         profiled_launches[name] = rec["n"]
-    # Five products of 2·hd flops per (row, key) pair the causal mask
-    # keeps (scores, dO·Vᵀ, dV, dQ, dK), bf16 at the tensor cores' peak;
-    # q, k, v, o, do and lse read and dq, dk and dv written once.
-    pairs = bh * sum(t - s + i + 1 for i in range(s))
-    nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
-              + lse.numel() * lse.element_size())
-    b_ms, b_by = bound(nbytes, 10 * hd * pairs, PEAK_BF16)
+    # Five products of 2·hd flops per causal (row, key) pair (scores,
+    # dO·Vᵀ, dV, dQ, dK); q, k, v, o, do and lse read and dq, dk and dv
+    # written once.
+    work = costs.flash_bwd_cost(bh, bkv, s, t, hd, dtype)
+    b_ms, b_by = costs.bound_ms(work.flops, work.bytes)
     return {"name": "flashattn_bwd", "route": "cuda",
             "source": source("flashattn"),
             "replaces": "src/repro/models/attention.py:175",
@@ -3603,14 +3704,16 @@ def main() -> int:
     fit_path(s1, tickets, card)
     stream_db, stream_base = stream_path(dev, card)
     shard_stream(stream_db, stream_base, card)
-    flash_launches, flash_shape = llm_path(dev, card)
-    moe_launches, moe_shape = llm_moe_path(dev, card)
+    flash_launches, flash_shape, llm_runs = llm_path(dev, card)
+    moe_launches, moe_shape, moe_runs = llm_moe_path(dev, card)
     embed_launches = llm_embed_path(dev, card)
-    hybrid_launches, hybrid_shape = llm_hybrid_path(dev, card)
+    hybrid_launches, hybrid_shape, hybrid_runs = llm_hybrid_path(dev, card)
     llm_xlstm_path(dev, card)
-    train_launches, train_step_s = train_path(dev, card)
+    train_launches, train_step_s, train_runs = train_path(dev, card)
     kvrep_launches = train_kvrep_path(dev, card, train_step_s)
     mesh_launches = train_mesh_path(dev, card)
+    roofline_path({LLM_ARCH: llm_runs, MOE_ARCH: moe_runs,
+                   HYBRID_ARCH: hybrid_runs}, train_runs, card)
     c3_live = path_counts[("C3", "hierarchical/fused")]
     c3_live_rowloop = path_counts[("C3", "hierarchical/fused_rowloop")]
     counts = {

@@ -17,7 +17,11 @@ it; the tensors must lie on it).  On CUDA it checks dtype, shape and
 layout, allocates the outputs, launches its kernel on the current stream
 and adds one to ``LAUNCHES[name]``; with ``device="cpu"`` it runs the
 ``*_plain`` twin beside it, the plain PyTorch version of the same
-function.  There is no fallback from the kernel to the plain version.
+function; with ``device="meta"`` (a dry run) it allocates the outputs and
+launches nothing.  There is no fallback from the kernel to the plain
+version.  Each wrapper declares the work its shapes give
+(``roofline.kernels.distthresh_shape_cost``) to a ``roofline.opcount``
+counter, on every device alike.
 
 Two things differ from the TPU kernels, neither visible in the results:
 
@@ -49,6 +53,8 @@ from repro_torch.kernels._launch import count_launch as _count_launch
 from repro_torch.kernels._launch import ptr as _ptr
 from repro_torch.kernels._launch import raise_on as _raise_on
 from repro_torch.kernels._launch import stream as _stream
+from repro_torch.roofline import kernels as costs
+from repro_torch.roofline.opcount import declare
 
 DEFAULT_CAND_BLK = 256
 DEFAULT_QRY_BLK = 256
@@ -91,15 +97,17 @@ def _valid(valid, n: int, what: str) -> int:
     return v
 
 
-def _kernel_target(entries: torch.Tensor, device) -> bool:
-    """True when the wrapper launches its CUDA kernel, False when it runs
-    the plain version (the caller asked for the CPU).  ``device`` is
-    resolved as every entry point resolves it (a CUDA request without CUDA
-    raises), and the tensors must lie on it."""
-    dev = resolve_device(device)
+def _kernel_target(entries: torch.Tensor, device) -> str:
+    """``"cuda"`` when the wrapper launches its CUDA kernel, ``"cpu"`` when
+    it runs the plain version (the caller asked for the CPU), ``"meta"``
+    for shapes alone (a dry run: the outputs are allocated, nothing is
+    launched).  ``device`` is resolved as every entry point resolves it (a
+    CUDA request without CUDA raises), and the tensors must lie on it."""
+    dev = torch.device("meta") if str(device) == "meta" else \
+        resolve_device(device)
     if entries.device != dev:
         raise ValueError(f"tensors on {entries.device}, but device={dev}")
-    return dev.type == "cuda"
+    return dev.type
 
 
 def _layout(entries: torch.Tensor, queries_t: torch.Tensor) -> int:
@@ -133,22 +141,26 @@ def distthresh_dense(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
     over row-major spans of min(Q, 256) columns × 1,024 / that many rows,
     each side's derived terms staged once per block."""
     c, q = _check_inputs(entries, queries_t, cand_blk, qry_blk)
-    if not _kernel_target(entries, device):
-        return distthresh_dense_plain(entries, queries_t, d,
-                                      cand_blk=cand_blk, qry_blk=qry_blk)
-    ldq = _layout(entries, queries_t)
-    dev = entries.device
-    t_enter = torch.empty((c, q), dtype=torch.float32, device=dev)
-    t_exit = torch.empty((c, q), dtype=torch.float32, device=dev)
-    hit = torch.empty((c, q), dtype=torch.int8, device=dev)
-    if c and q:
-        from repro_torch.kernels import _build
-        err = _build.load().distthresh_dense_launch(
-            _ptr(entries), c, _ptr(queries_t), ldq, q, float(np.float32(d)),
-            _ptr(t_enter), _ptr(t_exit), _ptr(hit), _stream(dev))
-        _raise_on(err, "distthresh_dense")
-        _count_launch("distthresh_dense")
-    return t_enter, t_exit, hit
+    target = _kernel_target(entries, device)
+    with declare("distthresh_dense", lambda: costs.distthresh_shape_cost(
+            c, q, "dense", valid_c=c, valid_q=q)):
+        if target == "cpu":
+            return distthresh_dense_plain(entries, queries_t, d,
+                                          cand_blk=cand_blk, qry_blk=qry_blk)
+        ldq = _layout(entries, queries_t)
+        dev = entries.device
+        t_enter = torch.empty((c, q), dtype=torch.float32, device=dev)
+        t_exit = torch.empty((c, q), dtype=torch.float32, device=dev)
+        hit = torch.empty((c, q), dtype=torch.int8, device=dev)
+        if c and q and target == "cuda":
+            from repro_torch.kernels import _build
+            err = _build.load().distthresh_dense_launch(
+                _ptr(entries), c, _ptr(queries_t), ldq, q,
+                float(np.float32(d)),
+                _ptr(t_enter), _ptr(t_exit), _ptr(hit), _stream(dev))
+            _raise_on(err, "distthresh_dense")
+            _count_launch("distthresh_dense")
+        return t_enter, t_exit, hit
 
 
 def distthresh_dense_plain(entries: torch.Tensor, queries_t: torch.Tensor,
@@ -209,29 +221,34 @@ def distthresh_compact(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
     if prune:
         _check_mbr(e_mbr, ntc, entries.device, "e_mbr")
         _check_mbr(q_mbr, ntq, entries.device, "q_mbr")
-    if not _kernel_target(entries, device):
-        plain = (distthresh_compact_rowloop_plain if append == "rowloop"
-                 else distthresh_compact_plain)
-        return plain(entries, queries_t, d, capacity=capacity,
-                     cand_blk=cand_blk, qry_blk=qry_blk, valid_c=valid_c,
-                     valid_q=valid_q, e_mbr=e_mbr, q_mbr=q_mbr,
-                     d_prune=d_prune)
-    ldq = _layout(entries, queries_t)
-    dev = entries.device
-    outs = _compact_outputs(capacity, dev)
-    if ntc and ntq:
-        from repro_torch.kernels import _build
-        name = ("distthresh_compact_rowloop" if append == "rowloop"
-                else "distthresh_compact")
-        err = getattr(_build.load(), name + "_launch")(
-            _ptr(entries), c, _ptr(queries_t), ldq, q, float(np.float32(d)),
-            cand_blk, qry_blk, valid_c, valid_q, capacity,
-            _ptr(e_mbr), _ptr(q_mbr),
-            float(np.float32(d_prune)) if prune else 0.0,
-            *(_ptr(t) for t in outs), _stream(dev))
-        _raise_on(err, name)
-        _count_launch(name)
-    return outs
+    target = _kernel_target(entries, device)
+    name = ("distthresh_compact_rowloop" if append == "rowloop"
+            else "distthresh_compact")
+    with declare(name, lambda: costs.distthresh_shape_cost(
+            c, q, "compact", valid_c=valid_c, valid_q=valid_q,
+            capacity=capacity)):
+        if target == "cpu":
+            plain = (distthresh_compact_rowloop_plain if append == "rowloop"
+                     else distthresh_compact_plain)
+            return plain(entries, queries_t, d, capacity=capacity,
+                         cand_blk=cand_blk, qry_blk=qry_blk, valid_c=valid_c,
+                         valid_q=valid_q, e_mbr=e_mbr, q_mbr=q_mbr,
+                         d_prune=d_prune)
+        ldq = _layout(entries, queries_t)
+        dev = entries.device
+        outs = _compact_outputs(capacity, dev)
+        if ntc and ntq and target == "cuda":
+            from repro_torch.kernels import _build
+            err = getattr(_build.load(), name + "_launch")(
+                _ptr(entries), c, _ptr(queries_t), ldq, q,
+                float(np.float32(d)),
+                cand_blk, qry_blk, valid_c, valid_q, capacity,
+                _ptr(e_mbr), _ptr(q_mbr),
+                float(np.float32(d_prune)) if prune else 0.0,
+                *(_ptr(t) for t in outs), _stream(dev))
+            _raise_on(err, name)
+            _count_launch(name)
+        return outs
 
 
 def _check_append(append: str) -> None:
@@ -279,27 +296,33 @@ def distthresh_compact_live(entries: torch.Tensor, queries_t: torch.Tensor,
     if tuple(tile_j.shape) != (n_slots,) or tuple(n_live.shape) != (1,):
         raise ValueError(f"tile_j must be ({n_slots},) and n_live (1,), got "
                          f"{tuple(tile_j.shape)} / {tuple(n_live.shape)}")
-    if not _kernel_target(entries, device):
-        plain = (distthresh_compact_live_rowloop_plain if append == "rowloop"
-                 else distthresh_compact_live_plain)
-        return plain(entries, queries_t, d, tile_i, tile_j, n_live,
-                     capacity=capacity, cand_blk=cand_blk, qry_blk=qry_blk,
-                     valid_c=valid_c, valid_q=valid_q)
-    ldq = _layout(entries, queries_t)
-    dev = entries.device
-    outs = _compact_outputs(capacity, dev)[:5]
-    if n_slots and c and q:
-        from repro_torch.kernels import _build
-        name = ("distthresh_compact_live_rowloop" if append == "rowloop"
-                else "distthresh_compact_live")
-        err = getattr(_build.load(), name + "_launch")(
-            _ptr(entries), c, _ptr(queries_t), ldq, q, float(np.float32(d)),
-            cand_blk, qry_blk, valid_c, valid_q, capacity,
-            _ptr(tile_i), _ptr(tile_j), _ptr(n_live), n_slots,
-            *(_ptr(t) for t in outs), _stream(dev))
-        _raise_on(err, name)
-        _count_launch(name)
-    return outs
+    target = _kernel_target(entries, device)
+    name = ("distthresh_compact_live_rowloop" if append == "rowloop"
+            else "distthresh_compact_live")
+    with declare(name, lambda: costs.distthresh_shape_cost(
+            c, q, "live", valid_c=valid_c, valid_q=valid_q,
+            capacity=capacity, slots=n_slots, tile=cand_blk * qry_blk)):
+        if target == "cpu":
+            plain = (distthresh_compact_live_rowloop_plain
+                     if append == "rowloop" else
+                     distthresh_compact_live_plain)
+            return plain(entries, queries_t, d, tile_i, tile_j, n_live,
+                         capacity=capacity, cand_blk=cand_blk, qry_blk=qry_blk,
+                         valid_c=valid_c, valid_q=valid_q)
+        ldq = _layout(entries, queries_t)
+        dev = entries.device
+        outs = _compact_outputs(capacity, dev)[:5]
+        if n_slots and c and q and target == "cuda":
+            from repro_torch.kernels import _build
+            err = getattr(_build.load(), name + "_launch")(
+                _ptr(entries), c, _ptr(queries_t), ldq, q,
+                float(np.float32(d)),
+                cand_blk, qry_blk, valid_c, valid_q, capacity,
+                _ptr(tile_i), _ptr(tile_j), _ptr(n_live), n_slots,
+                *(_ptr(t) for t in outs), _stream(dev))
+            _raise_on(err, name)
+            _count_launch(name)
+        return outs
 
 
 # ----------------------------------------------------------------------

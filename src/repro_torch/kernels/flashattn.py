@@ -57,7 +57,11 @@ the bound's five (S and dP in both kernels, each value product twice).
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (:func:`flashattn_plain`,
 :func:`flashattn_fwd_plain`, :func:`flashattn_bwd_plain`), the same
-function in plain PyTorch.  There is no fallback from one to the other.
+function in plain PyTorch; on a ``meta`` tensor (a dry run,
+``roofline.dryrun``) it returns empty outputs of the right shapes.  There
+is no fallback from one to the other.  Each wrapper declares its work
+(``roofline.kernels``) to a ``roofline.opcount`` counter, on every
+device alike.
 """
 from __future__ import annotations
 
@@ -66,6 +70,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels._launch import count_launch, ptr, raise_on, stream
+from repro_torch.roofline import kernels as costs
+from repro_torch.roofline.opcount import declare
 
 NEG_INF = -1e30
 #: Head dims the CUDA kernel is instantiated for.
@@ -145,9 +151,20 @@ def _aligned(**xs: torch.Tensor) -> None:
 def _forward(q, k, v, g: int, device, *, with_lse: bool):
     _check(q, k, v, g)
     dev = _on(q, device)
-    if dev.type != "cuda":
-        return flashattn_fwd_plain(q, k, v, g=g) if with_lse else (
-            flashattn_plain(q, k, v, g=g), None)
+    with declare("flashattn", lambda: costs.flash_fwd_cost(
+            q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
+            q.dtype, with_lse)):
+        if dev.type == "meta":                # shapes alone
+            return torch.empty_like(q), (torch.empty(
+                q.shape[:2], dtype=torch.float32, device=dev)
+                if with_lse else None)
+        if dev.type != "cuda":
+            return flashattn_fwd_plain(q, k, v, g=g) if with_lse else (
+                flashattn_plain(q, k, v, g=g), None)
+        return _launch_fwd(q, k, v, g, dev, with_lse)
+
+
+def _launch_fwd(q, k, v, g: int, dev, with_lse: bool):
     bh, s, hd = q.shape
     t = k.shape[1]
     if s > MAX_S:
@@ -184,8 +201,17 @@ def flashattn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the CPU :func:`flashattn_bwd_plain`."""
     _check_bwd(q, k, v, o, lse, do, g)
     dev = _on(q, device)
-    if dev.type != "cuda":
-        return flashattn_bwd_plain(q, k, v, o, lse, do, g=g)
+    with declare("flashattn_bwd", lambda: costs.flash_bwd_cost(
+            q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
+            q.dtype)):
+        if dev.type == "meta":                # shapes alone
+            return tuple(torch.empty_like(x) for x in (q, k, v))
+        if dev.type != "cuda":
+            return flashattn_bwd_plain(q, k, v, o, lse, do, g=g)
+        return _launch_bwd(q, k, v, o, lse, do, g, dev)
+
+
+def _launch_bwd(q, k, v, o, lse, do, g: int, dev):
     bh, s, hd = q.shape
     t = k.shape[1]
     if s > MAX_S or t > MAX_S:

@@ -55,7 +55,10 @@ def test_port_has_modules():
             "repro_torch.train.step", "repro_torch.train.checkpoint",
             "repro_torch.train.compress", "repro_torch.launch",
             "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-            "repro_torch.models.shardctx"} <= names
+            "repro_torch.models.shardctx", "repro_torch.roofline",
+            "repro_torch.roofline.analysis", "repro_torch.roofline.opcount",
+            "repro_torch.roofline.kernels",
+            "repro_torch.roofline.dryrun"} <= names
 
 
 def test_import_loads_neither_jax_nor_repro():
