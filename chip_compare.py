@@ -2,7 +2,7 @@
 """Time the port's distance kernels and profile the paths that launch
 them, on one CUDA card, for one source tree.
 
-    python3 chip_compare.py [--tree DIR] [--train]
+    python3 chip_compare.py [--tree DIR] [--train | --flash-f32]
 
 ``DIR`` (default: this checkout) is the root of a checkout whose
 ``src/repro_torch`` is measured, kernels built from its own sources; the
@@ -23,7 +23,13 @@ path), profile_ticket2 (serve ticket 2 on the row-loop rung) and profile
 instead ``chip_smoke.py``'s training path: granite-3-2b at full width
 and depth, bf16, seeded weights, ``make_train_step`` with remat at
 ``chip_smoke.TRAIN_OPT`` over ``chip_smoke.train_batches`` (6 steps of 8
-× 1,024 tokens), each step's wall between two synchronizes.
+× 1,024 tokens), each step's wall between two synchronizes.  With
+``--flash-f32`` it times instead the float32 flash forward at
+granite-3-2b's prefill shape and the float32 flash backward at its
+training shape (both BH 256, BKV 64, S = T = 1,024, hd 64), with
+``chip_smoke.flash_timing`` and ``chip_smoke.flash_bwd_timing``: the
+kernels, their plain versions and SDPA, each checked against the plain
+version first.
 """
 import argparse
 import os
@@ -54,8 +60,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=HERE,
                     help="root of the checkout to measure")
-    ap.add_argument("--train", action="store_true",
-                    help="time granite-3-2b's train step instead")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="time granite-3-2b's train step instead")
+    mode.add_argument("--flash-f32", action="store_true",
+                      help="time the float32 flash forward and backward "
+                           "instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_compare: CUDA is not available", file=sys.stderr)
@@ -72,6 +82,8 @@ def main() -> int:
     cs.emit({"tree": tree, "card": card})
     if args.train:
         return train_steps(cs, dev, card)
+    if args.flash_f32:
+        return flash_f32(cs, dev, card)
     db = TrajectoryDB.from_scenario("S1", scale=1.0, device=dev)
     _, _, e, qt = cs.batch_inputs(db, "spatial")
     d = np.float32(db.scenario_d)
@@ -118,6 +130,24 @@ def train_steps(cs, dev, card) -> int:
     cs.emit({"train_step": cs.TRAIN_ARCH, "batch": [cs.TRAIN_BATCH,
                                                     cs.TRAIN_SEQ],
              "wall_s": walls, "loss": losses, "card": card})
+    return 0
+
+
+def flash_f32(cs, dev, card) -> int:
+    """The float32 flash kernels at granite-3-2b's shapes, as the timing
+    phases time them (no launches counted: no path runs here)."""
+    from repro_torch.kernels import flashattn as fa
+    bkv, g, s, hd = cs.TRAIN_FLASH
+    shape = dict(bh=bkv * g, bkv=bkv, s=s, t=s, hd=hd, g=g, kv_heads=8,
+                 dtype=torch.float32)
+    fwd = cs.flash_timing(dev, shape, 0, torch.float32)
+    bwd = cs.flash_bwd_timing(dev, dict.fromkeys(fa.BWD_KERNELS, 0),
+                              "none: timing only", torch.float32)
+    for row in (fwd, bwd):
+        cs.emit({"kernel": row["name"], **{k: row[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}, "kernel_ms": row.get("kernel_ms"),
+            "card": card})
     return 0
 
 

@@ -12,28 +12,31 @@ Phases, each printing one JSON line (``"phase": ...``):
 2. build   — ``nvcc`` builds ``src/repro_torch/kernels/csrc/*.cu`` (one
    compile per source, all at once; ``ptxas`` registers and spills), and
    ``cuobjdump -sass`` counts each kernel's ``HGMMA`` and ``UTMALDG``
-   instructions (every bf16 flash instantiation, the forward's and the
-   backward's dK/dV and dQ kernels, must have both; null where the
-   toolkit has no ``cuobjdump``); the backward instantiations' registers
-   and spills are printed apart (none may spill at hd 64).
+   instructions (every flash instantiation, bf16 and float32, the
+   forward's and the backward's dK/dV and dQ kernels, must have both;
+   null where the toolkit has no ``cuobjdump``); the flash
+   instantiations' registers and spills are printed apart (no bf16
+   backward kernel may spill at hd 64).
    Then phase lint: ``python -m repro_torch.lint src/repro_torch
    --format=json`` must report 0 errors, KERN101 reading the very ``.cu``
    sources just built (each ``extern "C"`` function matched to its
    ``_build.SIGNATURES`` argtypes).
 3. kernels — each kernel against its plain PyTorch version on the card.
    The flash kernels (``FLASH_TOL``): head dims 16/32/64/112/128, g 1,
-   2 and 4, S = T = 77 and 1,000, S = 45 < T = 333, float32 (the
-   CUDA-core kernel) and bf16 (the tensor-core kernel), and bf16 at the
-   prefill shapes of the four llm phases (granite hd 64, g 4; qwen3 hd
-   128, g 8; musicgen hd 64, g 1; zamba2-7b hd 112, g 1; S = T = 1,024)
-   and at granite's training shape under KV-head replication (BKV 128,
-   g 2).  The flash backward (``BWD_TOL``) against the plain backward on
-   the kernel forward's o and lse, at the same head dims, g, lengths and
-   dtypes and at granite-3-2b's training shapes (BH 256, g 4 and, under
-   replication, g 2; S = T = 1,024, hd 64, bf16); the worst |diff| / tolerance per dtype; the forward's lse
-   against the plain loop's (``LSE_ATOL``); a second backward call
-   bit-identical; a bf16 ``do`` that starts 2 bytes past an aligned
-   address refused with ``ValueError`` (the TMA copies).  The
+   2 and 4, S = T = 77 and 1,000, S = 45 < T = 333, float32 (three
+   TF32 products per product) and bf16, bf16 at the prefill shapes of
+   the four llm phases (granite hd 64, g 4; qwen3 hd 128, g 8; musicgen
+   hd 64, g 1; zamba2-7b hd 112, g 1; S = T = 1,024) and at granite's
+   training shape under KV-head replication (BKV 128, g 2), and float32
+   at granite's prefill shape.  The flash backward (``BWD_TOL``) against
+   the plain backward on the kernel forward's o and lse, at the same
+   head dims, g, lengths and dtypes and at granite-3-2b's training
+   shapes (BH 256, g 4 and, under replication, g 2; S = T = 1,024, hd
+   64; bf16, and float32 at g 4); the worst |diff| / tolerance per dtype,
+   forward and backward; the forward's lse against the plain loop's
+   (``LSE_ATOL``); a second backward call bit-identical; a ``do`` that
+   starts one element past an aligned address (bf16 and float32)
+   refused with ``ValueError`` (the TMA copies).  The
    distance kernels: on seeded random tiles with the degenerate cases
    (zero-length extent, zero relative velocity, tangent roots, disjoint
    intervals), at 256×256,
@@ -152,6 +155,12 @@ Phases, each printing one JSON line (``"phase": ...``):
    llm_xlstm: xlstm-350m (24 layers: 3 groups of 7 mLSTM + 1 sLSTM, bf16)
    through ``generate`` twice (equal tokens, no kernel launch), its
    rates, and no ATen sync from ``models/xlstm.py`` or ``models/ssm.py``.
+   Then phase llm_f32: granite-3-2b at full width and depth in float32
+   (``dtype="float32"``, 10.1 GB of seeded random weights) through
+   ``ServeEngine.generate`` on the same prompts with 8 new tokens (40
+   launches of the three-TF32 flash kernel, none in decode), its last
+   prefill logits within ``LLM_F32_LOGIT_ATOL`` of the plain attention's
+   with equal argmax.
    Then phase train: granite-3-2b at full width and depth (40 layers,
    bf16, seeded random weights made on the card) through
    ``train.step.make_train_step`` (AdamW, ``TRAIN_OPT``, ``remat=True``)
@@ -186,7 +195,13 @@ Phases, each printing one JSON line (``"phase": ...``):
    ``local_map``; at the 2-layer cut, ``save`` and ``restore(shardings=)``
    bit-equal with every leaf on the mesh; ``make_compressed_allreduce``
    over the one rank, both codecs, equal bit for bit to
-   ``compress_leaf``'s dequantized payload.  Then phase roofline, one
+   ``compress_leaf``'s dequantized payload.  Phase train_f32: granite-3-2b
+   at full width and depth in float32 (parameters, gradients, m, v and
+   master float32): the loss and gradient norm at the fresh weights with
+   the flash kernels and with the plain attention (``F32_TRAIN_RTOL``),
+   two timed AdamW steps (80 float32 flash forwards and 40 of each
+   backward kernel a step, peak memory), batch 0's loss after them below
+   its own before.  Then phase roofline, one
    line per LLM path timed above (the granite-3-2b, qwen3-moe-30b-a3b
    and zamba2-7b prefills, one granite decode step, the granite train
    step at 8 × 1,024): ``roofline.dry_run`` on the ``meta`` device at
@@ -205,13 +220,15 @@ Phases, each printing one JSON line (``"phase": ...``):
    card's peaks); the row-loop kernels at the shapes of their chunk twins (the
    compact kernels with their grid's block count); the flash kernel at
    the llm phase's prefill shape, beside ``scaled_dot_product_attention``
-   (``library_ms``, timed here only), the float32 flash kernel at the
-   same shape in float32 (phase timing_flash_f32), and the bf16 flash
-   kernel at qwen3's prefill shape (phase timing_flash_moe) and at
-   zamba2-7b's (hd 112, g 1; phase timing_flash_hybrid); the flash
-   forward also with its lse written (``ms_with_lse``); the flash
-   backward at granite-3-2b's training shape, beside the backward of
-   ``scaled_dot_product_attention`` (its ``library_ms``, CUDA events).
+   (``library_ms``, timed here only), and the bf16 flash kernel at
+   qwen3's prefill shape (phase timing_flash_moe) and at zamba2-7b's (hd
+   112, g 1; phase timing_flash_hybrid); the flash forward also with its
+   lse written (``ms_with_lse``); the flash backward at granite-3-2b's
+   training shape, beside the backward of
+   ``scaled_dot_product_attention`` (its ``library_ms``, CUDA events);
+   the float32 forward and backward at the same shapes in float32 (rows
+   ``flashattn_f32`` and ``flashattn_bwd_f32``, launches counted on
+   phases llm_f32 and train_f32).
 
 Every ``backend="kernel"`` or ``"shard"`` run sets the launch counters
 to 0 just before it and reads them just after (``kernel_path``,
@@ -354,7 +371,7 @@ def ptxas_summary(log: str) -> dict:
 
 
 #: SASS opcodes counted per kernel in the build phase: the tensor-core
-#: products and the TMA tile loads of the bf16 flash kernel.
+#: products and the TMA tile loads of the flash kernels.
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 
@@ -685,9 +702,9 @@ def dense_checks(dev, rng, err) -> int:
     return len(DENSE_CASES)
 
 
-def flash_close(a, b, v, g: int, dtype) -> float:
-    """Max |a - b|, after checking ``FLASH_TOL`` (``v`` the values, ``g``
-    the query heads per KV head)."""
+def flash_over_tol(a, b, v, g: int, dtype) -> tuple[float, float]:
+    """(max |a - b|, max |a - b| / tolerance) under ``FLASH_TOL``, after
+    checking it (``v`` the values, ``g`` the query heads per KV head)."""
     rtol, atol, vtol = FLASH_TOL[dtype]
     a, b = a.float(), b.float()
     diff = (a - b).abs()
@@ -697,7 +714,12 @@ def flash_close(a, b, v, g: int, dtype) -> float:
     check(torch.isfinite(a).all().item(), "flashattn: non-finite output")
     check((diff <= tol).all().item(),
           f"flashattn {dtype}: max |diff| {float(diff.max())}")
-    return float(diff.max())
+    return float(diff.max()), float((diff / tol).max())
+
+
+def flash_close(a, b, v, g: int, dtype) -> float:
+    """Max |a - b|, after checking ``FLASH_TOL``."""
+    return flash_over_tol(a, b, v, g, dtype)[0]
 
 
 #: The llm phases' prefill shapes for the flash kernel (8 prompts in the
@@ -719,12 +741,14 @@ FLASH_GROUPS = (1, 2, 4)
 def flash_checks(dev) -> dict:
     """The flash kernel against its plain version on seeded normal
     inputs: every head dim, g 1, 2 and 4, S = T ragged, S < T windowed,
-    float32 (the CUDA-core kernel) and bf16 (the tensor-core kernel); and
-    bf16 at the four llm phases' prefill shapes and at granite-3-2b's
-    training shape under KV-head replication (g 2)."""
+    float32 (the three-TF32 kernel) and bf16; bf16 at the four llm
+    phases' prefill shapes and at granite-3-2b's training shape under
+    KV-head replication (g 2), and float32 at granite's prefill shape;
+    the worst |diff| / tolerance per dtype."""
     from repro_torch.kernels import flashattn as fa
     gen = torch.Generator(device=dev).manual_seed(2026)
     err = {str(dt): 0.0 for dt in FLASH_TOL}
+    ratio = {str(dt): 0.0 for dt in FLASH_TOL}
     cases = 0
 
     def case(dtype, bkv, g, s, t, hd):
@@ -734,8 +758,10 @@ def flash_checks(dev) -> dict:
         got = fa.flashattn(q, k, v, g=g)
         check(got.dtype == dtype and got.shape == q.shape,
               "flashattn: output dtype or shape")
-        e = flash_close(got, fa.flashattn_plain(q, k, v, g=g), v, g, dtype)
+        e, r = flash_over_tol(got, fa.flashattn_plain(q, k, v, g=g), v, g,
+                              dtype)
         err[str(dtype)] = max(err[str(dtype)], e)
+        ratio[str(dtype)] = max(ratio[str(dtype)], r)
 
     for dtype in (torch.float32, torch.bfloat16):
         for hd in fa.HEAD_DIMS:
@@ -747,9 +773,12 @@ def flash_checks(dev) -> dict:
                           HYBRID_FLASH, KVREP_FLASH):
         case(torch.bfloat16, bkv, g, s, s, hd)
         cases += 1
+    bkv, g, s, hd = SERVE_FLASH
+    case(torch.float32, bkv, g, s, s, hd)
+    cases += 1
     torch.cuda.synchronize()
     return {"cases": cases, "max_abs_err": max(err.values()),
-            "max_abs_err_by_dtype": err,
+            "max_abs_err_by_dtype": err, "max_diff_over_tol_by_dtype": ratio,
             "tol": {str(k): v for k, v in FLASH_TOL.items()}}
 
 
@@ -776,11 +805,12 @@ def flash_bwd_checks(dev) -> dict:
     """The flash backward kernels against the plain backward, and the
     forward's lse against the plain loop's, on seeded normal inputs: every
     head dim, g 1, 2 and 4, S = T = 77 and 1,000, S = 45 < T = 333,
-    float32 and bf16, and bf16 at granite-3-2b's training shape, with and
-    without KV-head replication (g 4 and g 2).  Both backwards
-    take the kernel forward's o and lse; a second call must give the same
-    bits; the worst |diff| / tolerance shows each dtype's margin.  Then a
-    bf16 ``do`` view 2 bytes past an aligned start must be refused."""
+    float32 and bf16, bf16 at granite-3-2b's training shape, with and
+    without KV-head replication (g 4 and g 2), and float32 at that shape
+    (g 4).  Both backwards take the kernel forward's o and lse; a second
+    call must give the same bits; the worst |diff| / tolerance shows each
+    dtype's margin.  Then a ``do`` view 2 (bf16) or 4 (float32) bytes past
+    an aligned start must be refused."""
     from repro_torch.kernels import flashattn as fa
     gen = torch.Generator(device=dev).manual_seed(2027)
     err = {str(dt): 0.0 for dt in BWD_TOL}
@@ -821,8 +851,12 @@ def flash_bwd_checks(dev) -> dict:
     for bkv, g, s, hd in (TRAIN_FLASH, KVREP_FLASH):
         case(torch.bfloat16, bkv, g, s, s, hd)
         cases += 1
+    bkv, g, s, hd = TRAIN_FLASH
+    case(torch.float32, bkv, g, s, s, hd)
+    cases += 1
     torch.cuda.synchronize()
-    misaligned = misaligned_bwd_refused(dev)
+    misaligned = {str(dt): misaligned_bwd_refused(dev, dt)
+                  for dt in (torch.bfloat16, torch.float32)}
     return {"cases": cases, "max_abs_err": max(err.values()),
             "max_abs_err_by_dtype": err, "max_diff_over_tol_by_dtype": ratio,
             "lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL,
@@ -830,19 +864,19 @@ def flash_bwd_checks(dev) -> dict:
             "tol": {str(k): v for k, v in BWD_TOL.items()}}
 
 
-def misaligned_bwd_refused(dev) -> str:
-    """The bf16 backward on a ``do`` that is a contiguous view starting 2
-    bytes past an aligned address (as ``do.contiguous()`` of an offset
-    view is): the wrapper must raise ``ValueError`` before any launch.
-    Returns the error's message."""
+def misaligned_bwd_refused(dev, dtype) -> str:
+    """The backward on a ``do`` that is a contiguous view starting one
+    element (2 bytes in bf16, 4 in float32) past an aligned address (as
+    ``do.contiguous()`` of an offset view is): the wrapper must raise
+    ``ValueError`` before any launch.  Returns the error's message."""
     from repro_torch.kernels import flashattn as fa
     from repro_torch.kernels._launch import LAUNCHES
-    q, k, v = (torch.randn((2, 77, 64), device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn((2, 77, 64), device=dev).to(dtype)
                for _ in range(3))
     o, lse = fa.flashattn_fwd(q, k, v, g=1)
-    do = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)[1:]
+    do = torch.empty(q.numel() + 1, dtype=dtype, device=dev)[1:]
     do = do.view(q.shape).copy_(q)
-    check(do.is_contiguous() and do.data_ptr() % 16 == 2,
+    check(do.is_contiguous() and do.data_ptr() % 16 == q.element_size(),
           "the misaligned view is not what the check needs")
     before = dict(LAUNCHES)
     try:
@@ -850,7 +884,7 @@ def misaligned_bwd_refused(dev) -> str:
     except ValueError as e:
         check(LAUNCHES == before, "a refused backward counted a launch")
         return str(e)
-    raise AssertionError("flashattn_bwd took a misaligned bf16 do")
+    raise AssertionError(f"flashattn_bwd took a misaligned {dtype} do")
 
 
 # ----------------------------------------------------------------------
@@ -2814,11 +2848,11 @@ def grads_at(cfg, model, batch, remat: bool = True):
     return float(loss), norm, counts
 
 
-def train_vs_plain(cfg, model, batch, want) -> dict:
+def train_vs_plain(cfg, model, batch, want, rtol=MB_RTOL) -> dict:
     """The step's loss and gradient norm at the fresh weights with the
     flash kernels, and with the plain forward and backward patched into
-    ``FlashAttention``: within ``MB_RTOL`` (the kernel forward rounds P to
-    bf16, the plain one does not)."""
+    ``FlashAttention``: within ``rtol`` (in bf16 ``MB_RTOL``: the kernel
+    forward rounds P to bf16, the plain one does not)."""
     from repro_torch.kernels import flashattn as fa
     loss, norm, counts = grads_at(cfg, model, batch)
     check(counts == want, f"loss and gradient launched {counts}")
@@ -2828,10 +2862,10 @@ def train_vs_plain(cfg, model, batch, want) -> dict:
     check(not p_counts, f"the plain attention launched {p_counts}")
     rel = {"loss": abs(loss - p_loss) / abs(p_loss),
            "grad_norm": abs(norm - p_norm) / abs(p_norm)}
-    check(all(rel[k] <= MB_RTOL[k] for k in MB_RTOL),
+    check(all(rel[k] <= rtol[k] for k in rtol),
           f"train loss and gradient, kernels vs plain: {rel}")
     return {"loss": loss, "grad_norm": norm, "plain_loss": p_loss,
-            "plain_grad_norm": p_norm, "rel_diff": rel, "rtol": MB_RTOL}
+            "plain_grad_norm": p_norm, "rel_diff": rel, "rtol": rtol}
 
 
 def _train_tensors(state: dict) -> dict:
@@ -3199,6 +3233,187 @@ def llm_xlstm_path(dev, card):
 
 
 # ----------------------------------------------------------------------
+# granite-3-2b in float32: the float32 flash kernels on a model's path.
+# ----------------------------------------------------------------------
+#: Phase llm_f32's new tokens per prompt.
+LLM_F32_NEW_TOKENS = 8
+#: Phase llm_f32's last prefill logits, kernel against plain attention,
+#: both float32.  Each attention output is within FLASH_TOL[float32]
+#: (1e-5 absolute and relative) of the plain version's (the three-TF32
+#: products keep about 21 bits: ~5e-7 in the emulation), where the bf16
+#: phase's roundings are one bf16 step (4e-3 relative) on a few outputs
+#: a layer and move these logits (magnitude ~2) by ~0.05; 40 layers
+#: carry a 1e-5 change to at most ~2e-4 at that gain, and 1e-3 leaves
+#: five times that.  A wrong kernel (mask, head or scale) moves the
+#: logits by their own size.
+LLM_F32_LOGIT_ATOL = 1e-3
+#: Phase train_f32's loss and gradient norm, kernels against the plain
+#: attention, both float32: the gradients differ by at most BWD_TOL's
+#: 1e-5 of their largest element and the attention outputs by
+#: FLASH_TOL's 1e-5; the mean loss over 8,192 tokens and the global norm
+#: over 2.5e9 coordinates average such differences down, so they move
+#: well below 1e-5 relative: 1e-5 on the loss, ten times that on the
+#: norm (a sum of squares that the largest gradients dominate).  In bf16
+#: (``MB_RTOL``) the rounding of P alone sets 1e-3 / 1e-2.  This check is
+#: a smoke test of the float32 training path, not a gate on the kernels'
+#: precision: at random weights the loss sits near ln(vocab) and barely
+#: reacts to attention error, and no control shows that a kernel with one
+#: TF32 product per float32 product would miss these bounds.  The gate
+#: on precision is phase kernels (``FLASH_TOL``, ``BWD_TOL``).
+F32_TRAIN_RTOL = {"loss": 1e-5, "grad_norm": 1e-4}
+#: Phase train_f32's AdamW steps (each ~3 s: the float32 products run on
+#: the CUDA cores through cuBLAS).
+F32_TRAIN_STEPS = 2
+
+
+def f32_config(arch: str):
+    """``arch``'s configuration with ``dtype="float32"`` (the reference's
+    ``configs/base.py`` field): every weight, activation and flash call
+    in float32."""
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS[arch], dtype="float32")
+
+
+def llm_f32_path(dev, card):
+    """granite-3-2b at full width and depth in float32 (seeded random
+    weights made on the card): ``ServeEngine.generate`` on the llm
+    phases' 8 prompts (bucket 1024) with ``LLM_F32_NEW_TOKENS`` new
+    tokens, ``flashattn`` launched once per layer of the prefill (the
+    three-TF32 kernel) and never in decode; the prefill's last logits
+    against the same model with ``flashattn_plain`` patched in
+    (``LLM_F32_LOGIT_ATOL``, argmax equal on every prompt).  Returns the
+    generate run's flash launches and the prefill's flash shape."""
+    from repro_torch.kernels import flashattn as fa
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
+    free_card()
+    cfg = f32_config(LLM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, init_s = make_model(cfg, dev)
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "llm_f32: a parameter is not float32")
+    lens, prompts, s = llm_prompts(cfg.vocab_size)
+    b, n_new = len(prompts), LLM_F32_NEW_TOKENS
+    eng = engine.ServeEngine(cfg, model, max_len=s + n_new, device=dev)
+    want = {"flashattn": cfg.num_layers}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: c for n, c in launches().items() if c}
+    check(counts == want, f"float32 generate launched {counts}; {want} in "
+          f"the prefill and none in decode belong to it")
+    for p, o in zip(prompts, outs):
+        check(o[:len(p)] == p and len(o) == len(p) + n_new and all(
+            0 <= t < cfg.vocab_size for t in o[len(p):]),
+              "float32 generate: prompt, length or vocabulary")
+    batch = prompt_batch(prompts, s, dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = T.prefill(cfg, model, batch, max_len=s + n_new,
+                              last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        last = logits[:, -1]
+        check(torch.isfinite(last).all().item(), "non-finite logits")
+        check(last.argmax(-1).cpu().tolist() ==
+              [o[len(p)] for p, o in zip(prompts, outs)],
+              "float32 prefill's first token differs from generate's")
+        with patched(attention, "flashattn", fa.flashattn_plain):
+            plain, _ = T.prefill(cfg, model, batch, max_len=s + n_new,
+                                 last_only=True)
+        diff = float((plain[:, -1] - last).abs().max())
+        agree = int((plain[:, -1].argmax(-1) == last.argmax(-1)).sum())
+    check(diff <= LLM_F32_LOGIT_ATOL, f"float32 prefill logits: kernel vs "
+          f"plain {diff} > {LLM_F32_LOGIT_ATOL}")
+    check(agree == b, f"float32 prefill argmax: kernel and plain agree on "
+          f"{agree} of {b} prompts")
+    emit({"phase": "llm_f32", "arch": LLM_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "weights_gb": sum(p.numel() * 4 for p in model.parameters()) / 1e9,
+          "init_s": init_s, "prompts": b,
+          "prompt_tokens": [int(n) for n in lens], "bucket": s,
+          "new_tokens": n_new, "generate_wall_s": wall,
+          "prefill_s": prefill_s, "launches_generate": counts,
+          "logits_max_abs_diff_vs_plain": diff,
+          "logits_magnitude": float(last.abs().max()),
+          "logits_atol": LLM_F32_LOGIT_ATOL, "argmax_agree": f"{agree}/{b}",
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "card": card})
+    del model, eng
+    free_card()
+    return counts["flashattn"], flash_shape(cfg, b, s)
+
+
+def train_f32_path(dev, card) -> dict:
+    """granite-3-2b at full width and depth in float32 (seeded random
+    weights made on the card; parameters, gradients, m, v and master all
+    float32): the loss and gradient norm at the fresh weights with the
+    flash kernels and with the plain attention (``F32_TRAIN_RTOL``), then
+    ``F32_TRAIN_STEPS`` AdamW steps (``TRAIN_OPT``, ``remat=True``) of
+    ``TRAIN_BATCH`` × ``TRAIN_SEQ`` tokens, each timed, its peak memory
+    and its launches recorded (``TRAIN_LAUNCHES`` per layer); the first
+    batch's loss after them below its own before.  Returns the last
+    step's launches."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+    free_card()
+    cfg = f32_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = step_lib.init_train_state(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params - uncounted_params(cfg) == cfg.param_count() and all(
+        p.dtype == torch.float32 for p in model.parameters()),
+          f"train_f32: {n_params} parameters, or not float32")
+    state_gib = sum(t.numel() * t.element_size() for t in
+                    [*model.parameters(), *state["opt"]["m"].values(),
+                     *state["opt"]["v"].values(),
+                     *state["opt"]["master"].values()]) / 2**30
+    batches = train_batches(cfg.vocab_size)
+    want = {n: k * cfg.num_layers for n, k in TRAIN_LAUNCHES.items()}
+    vs_plain = train_vs_plain(cfg, model, batches[0], want, F32_TRAIN_RTOL)
+    step = step_lib.make_train_step(cfg, opt_lib.AdamWConfig(**TRAIN_OPT),
+                                    microbatches=1, remat=True)
+    steps = []
+    for i in range(F32_TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, m, wall, counts = timed_step(step, state, batches[i], dev)
+        check(counts == want, f"float32 train step {i} launched {counts}, "
+              f"not {want}")
+        check(all(np.isfinite(v) for v in m.values()),
+              f"float32 train step {i}: non-finite metrics {m}")
+        steps.append({"step": i, "wall_s": wall, "tokens_per_s":
+                      TRAIN_BATCH * TRAIN_SEQ / wall, "peak_memory_gib":
+                      torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "launches": counts, **m})
+    with torch.no_grad():
+        after = float(T.loss_fn(cfg, model, {
+            k: torch.as_tensor(v, device=dev)
+            for k, v in batches[0].items()})[0])
+    check(after < steps[0]["loss"], f"float32 train: batch 0's loss "
+          f"{after} after the steps, {steps[0]['loss']} before")
+    emit({"phase": "train_f32", "arch": TRAIN_ARCH,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "parameters": n_params,
+          "state_gib": state_gib, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "optimizer": TRAIN_OPT, "remat": True, "steps": steps,
+          "loss_batch0_after": after, "kernel_vs_plain": vs_plain,
+          "card": card})
+    del state, model, step
+    free_card()
+    return steps[-1]["launches"]
+
+
+# ----------------------------------------------------------------------
 # Kernel timing at the main path's shapes.
 # ----------------------------------------------------------------------
 def roofline_line(rec: dict, runs_s: list, path: str, card: str,
@@ -3517,27 +3732,31 @@ def flash_timing(dev, shape, n_launches, dtype=None):
             "bound_by": b_by, "library_ms": library_ms}
 
 
-#: The bf16 backward's kernels, as the profiler and ptxas name them, by
-#: their ``LAUNCHES`` names.
-BWD_BF16_KERNELS = {"flashattn_bwd_delta": "flashattn_bwd_delta_kernel",
-                    "flashattn_bwd_dkdv": "flashattn_bwd_dkdv_wgmma_kernel",
-                    "flashattn_bwd_dq": "flashattn_bwd_dq_wgmma_kernel"}
+#: The backward's kernels, as the profiler and ptxas name them, per dtype,
+#: by their ``LAUNCHES`` names.
+BWD_KERNEL_NAMES = {
+    torch.bfloat16: {
+        "flashattn_bwd_delta": "flashattn_bwd_delta_kernel<bf16>",
+        "flashattn_bwd_dkdv": "flashattn_bwd_dkdv_wgmma_kernel",
+        "flashattn_bwd_dq": "flashattn_bwd_dq_wgmma_kernel"},
+    torch.float32: {
+        "flashattn_bwd_delta": "flashattn_bwd_delta_kernel<float>",
+        "flashattn_bwd_dkdv": "flashattn_bwd_dkdv_tf32x3_kernel",
+        "flashattn_bwd_dq": "flashattn_bwd_dq_tf32x3_kernel"}}
 
 
-def bwd_ptxas(log: str) -> dict:
-    """Registers and spills of every flash backward instantiation, from
-    the flashattn.cu compile's ``ptxas -v``, by short name; fails if a
-    bf16 backward kernel spills at hd 64 (granite's training shape)."""
+def flash_ptxas(log: str) -> dict:
+    """Registers and spills of every flash instantiation (forward and
+    backward, bf16 and float32), from the flashattn.cu compile's ``ptxas
+    -v``, by short name; fails if a bf16 backward kernel spills at hd 64
+    (granite's training shape)."""
     out = {}
     for raw, info in ptxas_summary(log).items():
-        m = re.search(r"\d+(flashattn_bwd\w*?_kernel)I(?:Li(\d+)E)?"
+        m = re.search(r"\d+(flashattn\w*?_kernel)I(?:Li(\d+)E)?"
                       r"(f|13__nv_bfloat16)?", raw)
-        if not m:
-            continue
-        arg = m.group(2) or ("float" if m.group(3) == "f" else "bf16")
-        if m.group(2) and m.group(3):
-            arg += ", float"
-        out[f"{m.group(1)}<{arg}>"] = info
+        if m:
+            arg = m.group(2) or ("float" if m.group(3) == "f" else "bf16")
+            out[f"{m.group(1)}<{arg}>"] = info
     for name in ("flashattn_bwd_dkdv_wgmma_kernel<64>",
                  "flashattn_bwd_dq_wgmma_kernel<64>"):
         check(name in out, f"ptxas reported no {name}")
@@ -3546,10 +3765,11 @@ def bwd_ptxas(log: str) -> dict:
     return out
 
 
-def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
+def flash_bwd_timing(dev, launches: dict, counted_on: str,
+                     dtype=torch.bfloat16) -> dict:
     """The flash backward at granite-3-2b's training shape
-    (``TRAIN_FLASH``, bf16, seeded normal inputs, the kernel forward's o
-    and lse): the three kernels (one wrapper call, and each kernel's
+    (``TRAIN_FLASH``, in ``dtype``, seeded normal inputs, the kernel
+    forward's o and lse): the three kernels (one wrapper call, and each kernel's
     device time per launch under the profiler), the plain backward, and
     the backward of ``scaled_dot_product_attention(is_causal=True,
     enable_gqa=True)`` on the same tensors (the yardstick only; the port
@@ -3561,7 +3781,7 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
     from repro_torch.roofline import kernels as costs
     gen = torch.Generator(device=dev).manual_seed(11)
     bkv, g, s, hd = TRAIN_FLASH
-    bh, t, dtype = bkv * g, s, torch.bfloat16
+    bh, t = bkv * g, s
     q, do = (torch.randn((bh, s, hd), generator=gen, device=dev).to(dtype)
              for _ in range(2))
     k, v = (torch.randn((bkv, t, hd), generator=gen, device=dev).to(dtype)
@@ -3584,8 +3804,8 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
     def library():
         return torch.autograd.grad(lo, (lq, lk, lv), ldo, retain_graph=True)
 
-    # SDPA's backward rounds its probabilities and score gradients to
-    # bf16: held to the same function only loosely (a wrong layout misses
+    # In bf16 SDPA's backward rounds its probabilities and score gradients
+    # to bf16: held to the same function only loosely (a wrong layout misses
     # by the gradients' own size).
     lib_err = max(float((a.reshape(b.shape).float() - b.float()).abs().max()
                         / b.float().abs().max())
@@ -3601,10 +3821,9 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
     n_calls = 20
     _, _, _, _, top = profiled(lambda: [
         fa.flashattn_bwd(q, k, v, o, lse, do, g=g) for _ in range(n_calls)],
-        by=lambda name: next((n for n, kern in BWD_BF16_KERNELS.items()
-                              if kern in name), None))
+        by=lambda name: next((n for n in fa.BWD_KERNELS if n in name), None))
     kernel_ms, profiled_launches = {}, {}
-    for name in BWD_BF16_KERNELS:
+    for name in fa.BWD_KERNELS:
         rec = top["by_kind"].get(name, {"n": 0, "us": 0.0})
         check(1 <= rec["n"] <= n_calls,
               f"profiler: {rec['n']} {name} launches in {n_calls} calls")
@@ -3624,8 +3843,8 @@ def flash_bwd_timing(dev, launches: dict, counted_on: str) -> dict:
             "launches": launches["flashattn_bwd_dkdv"],
             "launches_by_kernel": {n: launches[n] for n in fa.BWD_KERNELS},
             "launches_counted_on": counted_on,
-            "kernels": {n: f"{k}<{hd}>" if "wgmma" in k else f"{k}<bf16>"
-                        for n, k in BWD_BF16_KERNELS.items()},
+            "kernels": {n: k if k.endswith(">") else f"{k}<{hd}>"
+                        for n, k in BWD_KERNEL_NAMES[dtype].items()},
             "kernel_ms": kernel_ms,
             "kernel_ms_over_launches": profiled_launches,
             "shape": {"bh": bh, "bkv": bkv, "s": s, "t": t, "hd": hd,
@@ -3661,17 +3880,19 @@ def main() -> int:
     sass = sass_counts(lib)
     if sass is not None:
         from repro_torch.kernels.flashattn import HEAD_DIMS
-        wg = {k: v for k, v in sass.items() if "wgmma" in k}
-        # The forward and the backward's dK/dV and dQ kernels, per hd.
-        check(len(wg) == 3 * len(HEAD_DIMS) and all(
+        wg = {k: v for k, v in sass.items()
+              if "wgmma" in k or "tf32x3" in k}
+        # The forward and the backward's dK/dV and dQ kernels, per hd, in
+        # bf16 and in float32.
+        check(len(wg) == 6 * len(HEAD_DIMS) and all(
             v["HGMMA"] and v["UTMALDG"] for v in wg.values()),
-              f"bf16 flash kernels without HGMMA or UTMALDG: {wg}")
+              f"flash kernels without HGMMA or UTMALDG: {wg}")
     emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": _build.build_seconds,
           "built": [*REPLACES, *BWD_KERNELS], "ptxas": {
               src: ptxas_summary(log)
               for src, log in _build.build_log.items()},
-          "ptxas_flash_bwd": bwd_ptxas(_build.build_log["flashattn.cu"])
+          "ptxas_flash": flash_ptxas(_build.build_log["flashattn.cu"])
           if _build.build_log else "null: the library came from the cache",
           "sass": sass if sass is not None else
           "null: the toolkit has no cuobjdump"})
@@ -3709,9 +3930,11 @@ def main() -> int:
     embed_launches = llm_embed_path(dev, card)
     hybrid_launches, hybrid_shape, hybrid_runs = llm_hybrid_path(dev, card)
     llm_xlstm_path(dev, card)
+    f32_launches, f32_shape = llm_f32_path(dev, card)
     train_launches, train_step_s, train_runs = train_path(dev, card)
     kvrep_launches = train_kvrep_path(dev, card, train_step_s)
     mesh_launches = train_mesh_path(dev, card)
+    train_f32_launches = train_f32_path(dev, card)
     roofline_path({LLM_ARCH: llm_runs, MOE_ARCH: moe_runs,
                    HYBRID_ARCH: hybrid_runs}, train_runs, card)
     c3_live = path_counts[("C3", "hierarchical/fused")]
@@ -3735,13 +3958,6 @@ def main() -> int:
     by_name = {r["name"]: r for r in kernel_timing(dev, s1, dbs["C3"],
                                                      counts, card)}
     by_name["flashattn"] = flash_timing(dev, flash_shape, flash_launches)
-    # The float32 flash kernel at the same shape: the kernel float32 inputs
-    # run (no model of the main path is float32, so it has no launches
-    # there and no row of its own in the table).
-    f32 = flash_timing(dev, flash_shape, 0, torch.float32)
-    f32["launches_counted_on"] = ("none: the llm phase runs bf16; float32 "
-                                  "inputs run this kernel (phase kernels)")
-    emit({"phase": "timing_flash_f32", **f32, "card": card})
     # The bf16 flash kernel at qwen3's prefill shape (hd 128, g 8).
     moe_flash = flash_timing(dev, moe_shape, moe_launches)
     moe_flash["launches_counted_on"] = (
@@ -3773,6 +3989,24 @@ def main() -> int:
                    if k.startswith("flashattn_bwd")},
         mesh_on: {k: n for k, n in mesh_launches.items()
                   if k.startswith("flashattn_bwd")}}
+    # The float32 kernels (rows 6-f32 and 6b-f32): the forward at
+    # granite's prefill shape, counted on phase llm_f32, and the backward
+    # at its training shape, counted on phase train_f32.
+    train_f32_on = (f"{TRAIN_ARCH} float32 train step ({TRAIN_BATCH} × "
+                    f"{TRAIN_SEQ} tokens, remat)")
+    f32 = flash_timing(dev, f32_shape, f32_launches)
+    f32.update(name="flashattn_f32", kernel="flashattn_tf32x3_kernel<64>",
+               launches_counted_on=(
+                   f"{LLM_ARCH} float32 ServeEngine.generate ({LLM_PROMPTS} "
+                   f"prompts, bucket {f32_shape['s']}, {LLM_F32_NEW_TOKENS} "
+                   f"new tokens)"),
+               launches_other_paths={train_f32_on + ", with lse":
+                                     train_f32_launches["flashattn"]})
+    by_name["flashattn_f32"] = f32
+    f32_bwd = flash_bwd_timing(dev, train_f32_launches, train_f32_on,
+                               torch.float32)
+    f32_bwd["name"] = "flashattn_bwd_f32"
+    by_name["flashattn_bwd_f32"] = f32_bwd
     by_name["flashattn"]["other_shapes"] = [{
         k: row[k] for k in ("shape", "launches", "max_abs_err", "ms",
                             "plain_ms", "bound_ms", "bound_by",
@@ -3802,10 +4036,12 @@ def main() -> int:
             "hierarchical/fused_rowloop":
             shard_mode_counts[("C3", "hierarchical/fused_rowloop")].get(
                 "distthresh_compact_live_rowloop", 0)},
-        "flashattn": {}, "flashattn_bwd": {}}
+        "flashattn": {}, "flashattn_bwd": {}, "flashattn_f32": {},
+        "flashattn_bwd_f32": {}}
     for name, paths in shard_launches.items():
         by_name[name]["launches_shard"] = paths
-    table = [by_name[name] for name in (*REPLACES, "flashattn_bwd")]
+    table = [by_name[name] for name in (*REPLACES, "flashattn_bwd",
+                                        "flashattn_f32", "flashattn_bwd_f32")]
     torch.cuda.synchronize()
 
     emit({"kernels": table})

@@ -10,13 +10,21 @@ Softmax in float32 (scores scaled by ``1/sqrt(hd)``, the finite sentinel
 −1e30 on masked scores), output in q's dtype.
 
 The wrapper picks one of two kernels by dtype, with no fallback between
-them: float32 runs a kernel that does the reference's float32 arithmetic
-on the CUDA cores; bfloat16 runs a tensor-core kernel (``wgmma`` products
-fed by TMA copies) whose two products take bf16 operands with float32
-sums: the probabilities are rounded to bf16 before the value product, as
+them, both on the tensor cores (``wgmma`` products fed by TMA copies).
+bfloat16: the two products take bf16 operands with float32 sums; the
+probabilities are rounded to bf16 before the value product, as
 ``scaled_dot_product_attention`` does, so its outputs differ from
 :func:`flashattn_plain`'s by up to about ``2**-9 * max|v|`` of the KV
 head beyond their own bf16 rounding (``chip_smoke.py``'s ``FLASH_TOL``).
+float32: each product is three TF32 products of split operands (``hi =
+tf32(x)``, ``lo = tf32(x − hi)``; hi·hi + hi·lo + lo·hi, each exact in
+float32, with float32 sums), about 21 of float32's 24 bits, where the
+reference's float32 products keep all 24.  ``chip_smoke.py`` reads 0.26
+of ``FLASH_TOL[float32]`` at worst on an H100;
+``tests/test_torch_flashattn.py`` emulates the kernel on the CPU, with
+its key tiles and a model of the tensor cores' accumulate, at 0.16 of
+it at worst over the tests' shapes, and one TF32 product misses it by
+10–71×.
 
 Differences from the TPU kernel, none visible in the results:
 
@@ -24,7 +32,7 @@ Differences from the TPU kernel, none visible in the results:
   wanted multiples of its blocks; a query row with no key at or before it
   has no causal meaning, so ``S > T`` is refused);
 * ``hd`` is one of :data:`HEAD_DIMS` (a template parameter of the kernels),
-  f32 or bf16, q, k and v of one dtype; bf16 tensors start 16-byte
+  f32 or bf16, q, k and v of one dtype; the tensors start 16-byte
   aligned (TMA's rule; every fresh allocation does), and so does the
   backward's do.
 
@@ -40,19 +48,24 @@ value product.  One difference: delta = rowsum(do · o) reads the output
 in q's dtype, where the reference keeps its float32 output as the
 residual (the same in float32).
 
-The backward's two routes, again by dtype and with no fallback: float32
-runs CUDA-core kernels in float32 arithmetic; bfloat16 runs two
+The backward's two routes, again by dtype and with no fallback, each two
 tensor-core kernels (``wgmma`` fed by TMA, as the forward): dK/dV, one
 block per KV head's 64-key tile walking its group's query heads and
 tiles, and dQ, one block per 64-row query tile walking its key tiles, so
 each sum runs in one block in a fixed order (no atomics: two calls give
-the same bits).  Their scores and dO·vᵀ are exact products of the bf16
-inputs with float32 sums; p and ds enter the value products as hi + lo
-bf16 pairs (``hi = bf16(x)``, ``lo = bf16(x − hi)``, about 16 bits),
-where ``scaled_dot_product_attention``'s backward rounds them to bf16
-once, which would miss ``chip_smoke.py``'s ``BWD_TOL`` by tens of
-times.  The work is ten products of 2·hd flops per causal pair against
-the bound's five (S and dP in both kernels, each value product twice).
+the same bits).  bfloat16: the scores and dO·vᵀ are exact products of
+the bf16 inputs with float32 sums; p and ds enter the value products as
+hi + lo bf16 pairs (``hi = bf16(x)``, ``lo = bf16(x − hi)``, about 16
+bits), where ``scaled_dot_product_attention``'s backward rounds them to
+bf16 once, which would miss ``chip_smoke.py``'s ``BWD_TOL`` by tens of
+times; ten products of 2·hd flops per causal pair against the bound's
+five (S and dP in both kernels, each value product twice).  float32:
+every product three TF32 products, as the forward's, and each tile's or
+query item's value product in an accumulator of its own, added to the
+sum in float32 (one accumulator over a KV head's whole sum drifted past
+``BWD_TOL[float32]`` on the card): 0.61 of ``BWD_TOL[float32]`` at
+worst on an H100, 0.38 in the CPU emulation, and one TF32 product
+misses it by 84–192×.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (:func:`flashattn_plain`,
@@ -140,10 +153,13 @@ def _contiguous(**xs: torch.Tensor) -> None:
 
 
 def _aligned(**xs: torch.Tensor) -> None:
-    """The bf16 kernels' TMA copies need 16-byte aligned starts."""
+    """The kernels' TMA copies need 16-byte aligned starts (both dtypes;
+    the tensors share one)."""
     bad = [what for what, x in xs.items() if x.data_ptr() % 16]
     if bad:
-        raise ValueError(f"bf16 {', '.join(bad)} must start at 16-byte "
+        dtype = next(iter(xs.values())).dtype
+        name = "bf16" if dtype == torch.bfloat16 else "float32"
+        raise ValueError(f"{name} {', '.join(bad)} must start at 16-byte "
                          f"aligned addresses (the kernels' TMA copies "
                          f"need it)")
 
@@ -170,9 +186,8 @@ def _launch_fwd(q, k, v, g: int, dev, with_lse: bool):
     if s > MAX_S:
         raise ValueError(f"S={s} above the kernel's {MAX_S}")
     _contiguous(q=q, k=k, v=v)
+    _aligned(q=q, k=k, v=v)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = (torch.empty((bh, s), dtype=torch.float32, device=dev)
            if with_lse else None)
@@ -196,9 +211,9 @@ def flashattn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     upstream gradient ``do`` (like ``o``), from the forward's ``lse``: dq
     like q, dk and dv like k, in their dtype.  On the card: three CUDA
     launches (``LAUNCHES["flashattn_bwd_delta"]``, ``["flashattn_bwd_dkdv"]``
-    and ``["flashattn_bwd_dq"]``), the tensor-core kernels for bf16 and
-    the CUDA-core ones for float32, as the module docstring lays out; on
-    the CPU :func:`flashattn_bwd_plain`."""
+    and ``["flashattn_bwd_dq"]``), the tensor-core kernels of q's dtype,
+    as the module docstring lays out; on the CPU
+    :func:`flashattn_bwd_plain`."""
     _check_bwd(q, k, v, o, lse, do, g)
     dev = _on(q, device)
     with declare("flashattn_bwd", lambda: costs.flash_bwd_cost(
@@ -217,9 +232,8 @@ def _launch_bwd(q, k, v, o, lse, do, g: int, dev):
     if s > MAX_S or t > MAX_S:
         raise ValueError(f"S={s} or T={t} above the kernels' {MAX_S}")
     _contiguous(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    _aligned(q=q, k=k, v=v, do=do)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _aligned(q=q, k=k, v=v, do=do)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((bh, s), dtype=torch.float32, device=dev)
     if bh and s:

@@ -33,8 +33,11 @@ HW = {
 #: Dense product rates by the dtype of the operands (the data sheet's
 #: tensor-core rates; float32 is the CUDA cores' FMA rate, which the
 #: distance kernels and float32 products without TF32 run at).
+#: ``tf32x3`` is a float32 product done as three TF32 products (hi·hi +
+#: hi·lo + lo·hi of split operands), as the float32 flash kernels do it:
+#: a third of the TF32 rate per float32 FLOP.
 PEAKS = {"bfloat16": 989e12, "float16": 989e12, "tf32": 495e12,
-         "float32": 67e12}
+         "tf32x3": 495e12 / 3, "float32": 67e12}
 
 #: The reference's collective kinds (XLA's op names).
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",

@@ -12,7 +12,8 @@ operations are the ones the function needs, by dtype:
   ``t - s + i`` and meets the ``t - s + i + 1`` keys at or before it (a
   causal pair); the forward does two products of ``2·hd`` FLOPs per pair
   (scores and the value product), the backward five (scores, dO·Vᵀ, dV,
-  dQ, dK), in the inputs' dtype;
+  dQ, dK), in the inputs' dtype, float32 ones at the ``tf32x3`` rate
+  (the kernels do each float32 product as three TF32 products);
 * the distance kernels: float32 on the CUDA cores, 3 operations per
   (entry, query) pair for the temporal test and 45 more per pair whose
   time extents overlap (the rest of ``interval_solve`` in
@@ -58,6 +59,13 @@ def causal_pairs(bh: int, s: int, t: int) -> int:
     return bh * (s * (t - s) + s * (s + 1) // 2)
 
 
+def _flash_key(dtype: torch.dtype) -> str:
+    """The ``analysis.PEAKS`` key the flash kernels' products run at:
+    float32 as three TF32 products, bf16 as itself."""
+    name = dtype_name(dtype)
+    return "tf32x3" if name == "float32" else name
+
+
 def flash_fwd_cost(bh: int, bkv: int, s: int, t: int, hd: int,
                    dtype: torch.dtype, with_lse: bool = False
                    ) -> KernelCost:
@@ -67,7 +75,7 @@ def flash_fwd_cost(bh: int, bkv: int, s: int, t: int, hd: int,
     nbytes = (2 * bh * s * hd + 2 * bkv * t * hd) * tensor_bytes((), dtype)
     if with_lse:
         nbytes += 4 * bh * s
-    return KernelCost({dtype_name(dtype): 4.0 * hd * causal_pairs(bh, s, t)},
+    return KernelCost({_flash_key(dtype): 4.0 * hd * causal_pairs(bh, s, t)},
                       float(nbytes))
 
 
@@ -77,7 +85,7 @@ def flash_bwd_cost(bh: int, bkv: int, s: int, t: int, hd: int,
     the float32 lse read, dq, dk and dv written."""
     nbytes = ((4 * bh * s * hd + 4 * bkv * t * hd) * tensor_bytes((), dtype)
               + 4 * bh * s)
-    return KernelCost({dtype_name(dtype): 10.0 * hd * causal_pairs(bh, s, t)},
+    return KernelCost({_flash_key(dtype): 10.0 * hd * causal_pairs(bh, s, t)},
                       float(nbytes))
 
 

@@ -20,6 +20,14 @@ product; ``_emulate_bf16_kernel`` repeats that arithmetic in plain torch,
 and ``test_bf16_kernel_rounding_within_stated_tolerance`` holds it against
 the reference within ``chip_smoke.py``'s ``FLASH_TOL[bfloat16]``, so the
 tolerance the card's check uses is shown to follow from the rounding.
+The float32 kernels do each product as three TF32 products of split
+operands; ``_emulate_f32_kernel`` and ``_emulate_f32_bwd_kernel`` repeat
+that in plain torch, over the kernels' tiles and query items with an
+accumulator each (``_tc_mm``, which also models the tensor cores'
+accumulate as a truncation per k-step), within ``FLASH_TOL[float32]``
+and ``BWD_TOL[float32]``.  The negative controls: one TF32 product per
+product misses both by more than ten times, and one accumulator over a
+KV head's whole dK/dV sum misses ``BWD_TOL[float32]``.
 """
 import importlib.util
 import pathlib
@@ -380,9 +388,9 @@ def test_attention_uses_flash_function_only_for_gradients(monkeypatch):
 # ``scaled_dot_product_attention``'s backward does) instead of as hi + lo
 # pairs, the same check must fail, so the tolerance tells the two apart.
 # ----------------------------------------------------------------------
-def _chip_smoke_bwd_tol():
-    """``chip_smoke.py``'s (rtol, frac) for bf16 flash gradients."""
-    return _chip_smoke().BWD_TOL[torch.bfloat16]
+def _chip_smoke_bwd_tol(dtype=torch.bfloat16):
+    """``chip_smoke.py``'s (rtol, frac) for flash gradients of ``dtype``."""
+    return _chip_smoke().BWD_TOL[dtype]
 
 
 def _bf16_parts(x, pairs: bool):
@@ -422,10 +430,10 @@ def _emulate_bf16_bwd_kernel(q, k, v, o, lse, do, g, *, pairs=True):
             dv.to(torch.bfloat16))
 
 
-def _worst_over_bwd_tol(got, want) -> float:
+def _worst_over_bwd_tol(got, want, dtype=torch.bfloat16) -> float:
     """max |a − b| / (rtol·max(|a|, |b|) + frac·max|b|) over dq, dk, dv,
-    as ``chip_smoke.bwd_close`` applies ``BWD_TOL``."""
-    rtol, frac = _chip_smoke_bwd_tol()
+    as ``chip_smoke.bwd_close`` applies ``BWD_TOL[dtype]``."""
+    rtol, frac = _chip_smoke_bwd_tol(dtype)
     worst = 0.0
     for a, b in zip(got, want):
         a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
@@ -515,3 +523,324 @@ def test_bwd_wrapper_refuses_misaligned_bf16_tensors():
     _aligned(q=fresh, do=fresh)
     with pytest.raises(ValueError, match=r"bf16 do must start at 16-byte"):
         _aligned(q=fresh, do=view)
+
+
+# ----------------------------------------------------------------------
+# The float32 kernels: each product three TF32 products.
+# ----------------------------------------------------------------------
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: the float32 bits plus half a unit of
+    the 13 dropped bits, then those bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_parts(x, three: bool):
+    """x (float32) as the TF32 operands the kernels feed the tensor cores:
+    [hi, lo] with hi = tf32(x), lo = tf32(x − hi), or [tf32(x)]."""
+    hi = _tf32(x)
+    return [hi, _tf32(x - hi)] if three else [hi]
+
+
+def _rz(x):
+    """float64 x rounded toward zero to float32."""
+    r = x.to(torch.float32)
+    over = r.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _tc_mm(a, b, three: bool, acc=None):
+    """a @ b (float32, contracting a's last dim with b's second to last)
+    as one ``wgmma`` accumulator takes it: per k-step of 8, the products
+    lo·hi, hi·lo and hi·hi of the split operands (``three``) or tf32(a)·
+    tf32(b), each k-step's 8 products added to the accumulator exactly and
+    the sum truncated toward zero to float32.  The truncation is a model
+    of the tensor cores' accumulate (their alignment and rounding of the
+    sum are not documented; this one rounds each k-step once, toward
+    zero), chosen because it reproduces what the first float32 design
+    showed on the card: one accumulator over a long sum drifts past
+    ``BWD_TOL[float32]`` (``test_f32_bwd_long_accumulator_breaks_
+    stated_tolerance``).  ``acc`` continues an accumulator; None starts
+    one at zero."""
+    n = a.shape[-1]
+    pad = -n % 8
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    (ah, *al), (bh, *bl) = _tf32_parts(a, three), _tf32_parts(b, three)
+    terms = [(al[0], bh), (ah, bl[0]), (ah, bh)] if three else [(ah, bh)]
+    for k0 in range(0, n + pad, 8):
+        for x, y in terms:
+            part = x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double()
+            acc = _rz(part if acc is None else acc.double() + part)
+    return acc
+
+
+def _f32_key_tile(hd: int) -> int:
+    """Keys per tile of the float32 forward kernel (``FwdF32::kBK``)."""
+    return 64 if hd <= 64 else 32
+
+
+def _emulate_f32_kernel(q, k, v, g, *, three=True):
+    """The float32 forward kernel's arithmetic in plain torch: q scaled by
+    1/sqrt(hd) in float32, then split; per key tile of the kernel's
+    height, S = (q scale) kᵀ and the tile's P V each in an accumulator of
+    their own (``_tc_mm``: three TF32 products per k-step, or one);
+    the online softmax in float32 (−1e30 on masked scores, exp of s − m);
+    row sums of the float32 p; O = O corr + P V in float32; O divided by
+    max(l, 1e-30)."""
+    bh, s, hd = q.shape
+    bkv, t, _ = k.shape
+    tile = _f32_key_tile(hd)
+    qs = (q * float(np.float32(1.0 / np.sqrt(hd)))).reshape(bkv, g, s, hd)
+    q_pos = (t - s) + torch.arange(s)
+    m = torch.full((bkv, g, s), NEG_INF)
+    l = torch.zeros((bkv, g, s))
+    acc = torch.zeros((bkv, g, s, hd))
+    for k0 in range(0, t, tile):
+        kb, vb = k[:, None, k0:k0 + tile], v[:, None, k0:k0 + tile]
+        sc = _tc_mm(qs, kb.transpose(-1, -2), three)
+        mask = (k0 + torch.arange(kb.shape[2]))[None, :] <= q_pos[:, None]
+        sc = torch.where(mask, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _tc_mm(p, vb, three)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(bh, s, hd)
+
+
+def _worst_over_flash_tol(got, want, v, g) -> float:
+    """max |a − b| / (rtol·max(|a|, |b|) + atol + vtol·max|v|), as
+    ``chip_smoke.flash_close`` applies ``FLASH_TOL[float32]``."""
+    rtol, atol, vtol = _chip_smoke().FLASH_TOL[torch.float32]
+    vmax = np.abs(v).max(axis=(1, 2)).repeat(g)[:, None, None]
+    tol = rtol * np.maximum(np.abs(got), np.abs(want)) + atol + vtol * vmax
+    return float((np.abs(got - want) / tol).max())
+
+
+@pytest.mark.parametrize("bkv,g,s,t,hd,pallas", [
+    (2, 1, 64, 64, 16, True),
+    (1, 2, 64, 128, 32, True),       # windowed: S < T
+    (2, 4, 128, 128, 64, True),
+    (1, 1, 64, 64, 128, True),
+    (2, 1, 64, 64, 112, True),       # zamba2-7b's head dim
+    (1, 4, 77, 77, 64, False),       # ragged: no Pallas block divides it
+    (1, 2, 45, 333, 128, False),     # ragged and windowed
+    (2, 4, 70, 200, 16, False),
+    (1, 1, 100, 1000, 32, False),
+    (1, 2, 77, 77, 112, False),
+])
+def test_f32_kernel_rounding_within_stated_tolerance(bkv, g, s, t, hd,
+                                                     pallas):
+    """The three-TF32 emulation within ``FLASH_TOL[float32]`` of the
+    reference's oracle and, where its blocks divide S and T, of its Pallas
+    kernel (interpret mode)."""
+    rng = np.random.default_rng(3000 + 100 * hd + 10 * g + s)
+    q, k, v = _inputs(rng, bkv, g, s, t, hd)
+    got = _emulate_f32_kernel(*_torch(q, k, v), g).numpy()
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    wants = [np.asarray(flashattn_ref(jq, jk, jv, g=g))]
+    if pallas:
+        wants.append(np.asarray(flashattn_pallas(jq, jk, jv, g=g, blk_q=32,
+                                                 blk_k=32)))
+    for want in wants:
+        worst = _worst_over_flash_tol(got, want, v, g)
+        assert worst <= 1.0, worst
+
+
+def test_f32_single_tf32_breaks_stated_tolerance():
+    """Negative control: one TF32 product per float32 product misses
+    ``FLASH_TOL[float32]`` by more than ten times where three pass."""
+    rng = np.random.default_rng(31)
+    q, k, v = _inputs(rng, 1, 4, 256, 256, 64)
+    want = np.asarray(flashattn_ref(*(jnp.asarray(x) for x in (q, k, v)),
+                                    g=4))
+    worst = {three: _worst_over_flash_tol(
+        _emulate_f32_kernel(*_torch(q, k, v), 4, three=three).numpy(),
+        want, v, 4) for three in (True, False)}
+    assert worst[True] <= 1.0 and worst[False] > 10.0, worst
+
+
+def _f32_bwd_tiles(hd: int) -> tuple[int, int]:
+    """(query rows per dK/dV item, ``DkdvF32::kBQ``; keys per dQ tile,
+    ``DqF32::kBK``) of the float32 backward kernels."""
+    return (64, 64) if hd <= 64 else (16, 16)
+
+
+def _emulate_f32_bwd_kernel(q, k, v, o, lse, do, g, *, three=True,
+                            per_item=True):
+    """The float32 backward kernels' arithmetic in plain torch: delta =
+    rowsum(do · o); p = exp(S − lse) under the causal mask, ds = p (dP −
+    delta) scale, with S = (q scale) kᵀ and dP = do vᵀ in accumulators of
+    their own (``_tc_mm``, three TF32 products or one), each in its
+    kernel's operand order (dK/dV takes k and v as A, dQ takes q and do).
+    dK/dV walks its KV head's g query heads and, for each, the query
+    items of ``_f32_bwd_tiles`` rows: each item's pᵀ do and dsᵀ q (q
+    unscaled) go to an accumulator of their own, added to dv and dk in
+    float32, or with ``per_item=False`` all items to one accumulator (the
+    first design, which missed ``BWD_TOL[float32]`` on the card).  dQ
+    walks its key tiles, each tile's ds k in an accumulator of its own
+    added to dq in float32.  Items and tiles wholly outside the mask add
+    exact zeros, so every KV head walks them all."""
+    bh, s, hd = q.shape
+    bkv, t, _ = k.shape
+    bq, bk = _f32_bwd_tiles(hd)
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    qf = q.reshape(bkv, g, s, hd)
+    qs = qf * scale
+    dof = do.reshape(bkv, g, s, hd)
+    delta = (dof * o.reshape(bkv, g, s, hd)).sum(dim=-1)[..., None]
+    lse = lse.reshape(bkv, g, s)[..., None]
+    mask = torch.arange(t)[None, :] <= ((t - s) + torch.arange(s))[:, None]
+    k4, v4 = k[:, None], v[:, None]
+
+    def probs(sc, dp):
+        p = torch.where(mask, torch.exp(sc - lse), 0.0)
+        return p, p * (dp - delta) * scale
+
+    # dK/dV: Sᵀ = k (q scale)ᵀ and dPᵀ = v doᵀ, then per item.
+    p, ds = probs(_tc_mm(k4, qs.transpose(-1, -2), three).transpose(-1, -2),
+                  _tc_mm(v4, dof.transpose(-1, -2), three).transpose(-1, -2))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    long_k = long_v = None
+    for h in range(g):
+        for i0 in range(0, s, bq):
+            rows = slice(i0, i0 + bq)
+            pt = p[:, h, rows].transpose(-1, -2)
+            dst = ds[:, h, rows].transpose(-1, -2)
+            if per_item:
+                dv = dv + _tc_mm(pt, dof[:, h, rows], three)
+                dk = dk + _tc_mm(dst, qf[:, h, rows], three)
+            else:
+                long_v = _tc_mm(pt, dof[:, h, rows], three, long_v)
+                long_k = _tc_mm(dst, qf[:, h, rows], three, long_k)
+    if not per_item:
+        dk, dv = long_k, long_v
+    # dQ: S = (q scale) kᵀ and dP = do vᵀ, then per key tile.
+    _, ds = probs(_tc_mm(qs, k4.transpose(-1, -2), three),
+                  _tc_mm(dof, v4.transpose(-1, -2), three))
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, t, bk):
+        dq = dq + _tc_mm(ds[..., k0:k0 + bk], k4[:, :, k0:k0 + bk], three)
+    return dq.reshape(bh, s, hd), dk, dv
+
+
+def _f32_bwd_inputs(bkv, g, s, t, hd):
+    rng = np.random.default_rng(9000 + 100 * hd + 10 * g + s)
+    q, k, v = _inputs(rng, bkv, g, s, t, hd)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    return _torch(q, k, v, do)
+
+
+@pytest.mark.parametrize("against", ["plain", "reference"])
+@pytest.mark.parametrize("bkv,g,s,t,hd", [
+    (2, 1, 64, 64, 16),
+    (2, 4, 128, 128, 64),
+    (1, 2, 77, 77, 64),              # ragged
+    (1, 1, 45, 333, 128),            # ragged and windowed
+    (1, 4, 77, 77, 112),             # zamba2-7b's head dim
+    (2, 2, 200, 200, 32),
+])
+def test_f32_bwd_kernel_rounding_within_stated_tolerance(bkv, g, s, t, hd,
+                                                         against):
+    """The three-TF32 emulation within ``BWD_TOL[float32]`` of the plain
+    backward (on the plain forward's o and lse) and of the reference's
+    ``_flash_bwd`` through ``jax.vjp`` (on the reference forward's o and
+    lse)."""
+    from repro.models.attention import (_flash_fwd_loop,
+                                        chunked_causal_attention)
+    from repro_torch.kernels.flashattn import (flashattn_bwd_plain,
+                                               flashattn_fwd_plain)
+    tq, tk, tv, tdo = _f32_bwd_inputs(bkv, g, s, t, hd)
+    if against == "plain":
+        o, lse = flashattn_fwd_plain(tq, tk, tv, g=g)
+        want = [x.numpy() for x in
+                flashattn_bwd_plain(tq, tk, tv, o, lse, tdo, g=g)]
+    else:
+        shape_q, shape_k = (1, s, bkv, g, hd), (1, t, bkv, hd)
+        q5, k4, v4 = _from_kernel_layout(tq, tk, tv, shape_q, shape_k)
+        do5 = _from_kernel_layout(tdo, tk, tv, shape_q, shape_k)[0]
+        o_ref, lse_ref = _flash_fwd_loop(jnp.asarray(q5), jnp.asarray(k4),
+                                         jnp.asarray(v4), 64)
+        _, vjp = jax.vjp(lambda q, k, v: chunked_causal_attention(q, k, v, 64),
+                         q5, k4, v4)
+        dq5, dk4, dv4 = (np.array(x) for x in vjp(jnp.asarray(do5)))
+        want = [x.numpy() for x in _to_kernel_layout(dq5, dk4, dv4, dq5)[:3]]
+        o = torch.from_numpy(np.array(o_ref)).reshape(bkv * g, s, hd)
+        lse = torch.from_numpy(np.array(lse_ref)).reshape(bkv * g, s)
+    got = _emulate_f32_bwd_kernel(tq, tk, tv, o, lse, tdo, g)
+    worst = _worst_over_bwd_tol([x.numpy() for x in got], want,
+                                torch.float32)
+    assert worst <= 1.0, worst
+
+
+def test_f32_bwd_single_tf32_breaks_stated_tolerance():
+    """Negative control: one TF32 product per float32 product misses
+    ``BWD_TOL[float32]`` by more than ten times where three pass."""
+    from repro_torch.kernels.flashattn import (flashattn_bwd_plain,
+                                               flashattn_fwd_plain)
+    tq, tk, tv, tdo = _f32_bwd_inputs(2, 4, 128, 128, 64)
+    o, lse = flashattn_fwd_plain(tq, tk, tv, g=4)
+    want = [x.numpy()
+            for x in flashattn_bwd_plain(tq, tk, tv, o, lse, tdo, g=4)]
+    worst = {three: _worst_over_bwd_tol(
+        [x.numpy() for x in _emulate_f32_bwd_kernel(
+            tq, tk, tv, o, lse, tdo, 4, three=three)], want, torch.float32)
+        for three in (True, False)}
+    assert worst[True] <= 1.0 and worst[False] > 10.0, worst
+
+
+def test_f32_bwd_long_accumulator_breaks_stated_tolerance():
+    """Negative control: dK and dV summed over all of a KV head's 2,048
+    query rows in one accumulator, under ``_tc_mm``'s truncating model,
+    miss ``BWD_TOL[float32]`` (about 2× here; the first design on the
+    card read 1.16–4.22× at S = T = 1,000), where one accumulator per
+    query item passes."""
+    from repro_torch.kernels.flashattn import (flashattn_bwd_plain,
+                                               flashattn_fwd_plain)
+    tq, tk, tv, tdo = _f32_bwd_inputs(1, 4, 512, 512, 64)
+    o, lse = flashattn_fwd_plain(tq, tk, tv, g=4)
+    want = flashattn_bwd_plain(tq, tk, tv, o, lse, tdo, g=4)
+    worst = {}
+    for per_item in (True, False):
+        got = _emulate_f32_bwd_kernel(tq, tk, tv, o, lse, tdo, 4,
+                                      per_item=per_item)
+        worst[per_item] = _worst_over_bwd_tol(
+            [x.numpy() for x in got[1:]], [x.numpy() for x in want[1:]],
+            torch.float32)
+    assert worst[True] <= 1.0 and worst[False] > 1.0, worst
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """``_tf32`` keeps 10 mantissa bits, rounding half a unit up in
+    magnitude (``cvt.rna``), and ``hi + lo`` keeps about 21 bits."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4,
+                      1 + 3 * ulp / 4, 3.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1 + ulp, -(1 + ulp), 1.0, 1 + ulp, 3.0]
+    y = torch.from_numpy(np.random.default_rng(5).normal(size=4096)
+                         .astype(np.float32))
+    hi, lo = _tf32_parts(y, True)
+    assert float(((hi + lo - y).abs() / y.abs()).max()) < 2.0 ** -20
+
+
+@pytest.mark.parametrize("fn", ["fwd", "bwd"])
+def test_wrapper_refuses_misaligned_f32_tensors(fn):
+    """The float32 kernels load their tiles by TMA too: the launch path
+    refuses a float32 view 4 bytes past an aligned start by name, before
+    any build or launch."""
+    from repro_torch.kernels.flashattn import _launch_bwd, _launch_fwd
+    q = torch.zeros((2, 16, 16))
+    view = torch.zeros(2 * 16 * 16 + 1)[1:].view(2, 16, 16)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    dev = torch.device("cpu")
+    with pytest.raises(ValueError, match=r"float32 k must start at 16-byte"):
+        if fn == "fwd":
+            _launch_fwd(q, view, q, 1, dev, True)
+        else:
+            lse = torch.zeros((2, 16))
+            _launch_bwd(q, view, q, q, lse, q, 1, dev)

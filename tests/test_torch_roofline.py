@@ -361,8 +361,11 @@ def test_declare_charges_the_kernel_and_hides_its_plain_twin():
     dist = costs.distthresh_shape_cost(300, 40, "compact", valid_c=300,
                                        valid_q=40, capacity=64)
     mm = 2 * bkv * g * s * hd * hd
-    assert got.flops_by_dtype == {"float32": mm + fwd.total_flops
-                                  + bwd.total_flops + dist.total_flops}
+    # The float32 flash kernels' products are three TF32 products each:
+    # their own PEAKS key.
+    assert got.flops_by_dtype == {"float32": mm + dist.total_flops,
+                                  "tf32x3": fwd.total_flops
+                                  + bwd.total_flops}
     assert got.kernels == {
         "flashattn": {"calls": 1, "flops": fwd.total_flops,
                       "bytes": fwd.bytes},
@@ -499,6 +502,13 @@ BOUND_ROWS = {
     "6b flash backward": (costs.flash_bwd_cost(256, 64, 1024, 1024, 64,
                                                BF16),
                           0.086939567239636, "operations"),
+    # float32 at the three-TF32 rate (495 / 3 TFLOP/s).
+    "6-f32 flash hd 64": (costs.flash_fwd_cost(256, 64, 1024, 1024, 64,
+                                               torch.float32),
+                          0.2084441987878788, "operations"),
+    "6b-f32 flash backward": (costs.flash_bwd_cost(256, 64, 1024, 1024, 64,
+                                                   torch.float32),
+                              0.5211104969696969, "operations"),
 }
 
 
