@@ -89,6 +89,20 @@ Phases, each printing one JSON line (``"phase": ...``):
    C3 matrix through ``backend="shard"`` on 4 pods, equal to the
    single-device rows of each mode, sparse dispatch on and off
    byte-identical (C3 hierarchical launches ``distthresh_compact_live``).
+   Phase properties (between the two): ``PROP_CASES`` seeded databases
+   (``property_inputs``: random, clustered and near-tangent families of
+   2,000-20,000 entry segments, 20-200 queries, d 0.2-12) through
+   ``db.query(backend="kernel")``: the nine pruning × compaction modes,
+   the six batching algorithms and ``backend="torch"`` byte-identical;
+   every difference from a float64 host oracle inside its pair's own
+   round-off band (``prune_limit`` at the pair's ``solve_scale``, the
+   worst ratio reported); rows at d a subset of rows at
+   1.5 d; every interval inside its common time; ``count`` exact at a
+   capacity below the hits.  Over the sweep tiles must be pruned and
+   every distance kernel launch, and with the tile test's slack removed
+   the near-tangent family's rows must change (the negative control).
+   ``python3 chip_smoke.py --property-case I`` builds the kernels and
+   reruns case I alone.
 6. serve   — the serving path on the same S1 database at scale 1.0:
    ``db.broker(backend="kernel")`` with a ``SliceCache`` and a
    ``RetryPolicy(degrade_after=1)``, the 100 query trajectories as 4
@@ -1164,6 +1178,393 @@ def mode_matrix(dev, card):
     summary["S2"] = {"hits": len(res), "launches": counts}
     emit({"phase": "modes", "scenarios": summary, "card": card})
     return dbs, path_counts, results
+
+
+# ----------------------------------------------------------------------
+# Phase properties: the exactness properties, a seeded sweep on the card.
+# ----------------------------------------------------------------------
+#: Case i of phase properties draws everything from
+#: ``np.random.default_rng([PROP_SEED, i])``: a failure names its case,
+#: and ``python3 chip_smoke.py --property-case i`` reruns that case alone.
+PROP_SEED = 25
+PROP_CASES = 64
+#: Case i's family is ``PROP_FAMILIES[i % 3]``.
+PROP_FAMILIES = ("random", "clustered", "near_tangent")
+#: The scenarios' time span (``data/trajgen.py``: 0-400).
+PROP_T_MAX = 400.0
+#: Entry rows of one near-tangent cluster: one 256-row tile.
+PROP_CLUSTER_ROWS = 256
+#: Near-tangent cases the negative control runs (the first ones).
+PROP_NEGATIVE_CASES = 8
+
+
+def random_segs(rng, n: int, *, t_span=(0.0, 50.0), box: float = 30.0,
+                max_len: float = 3.0) -> np.ndarray:
+    """``tests/conftest.py::random_segments`` as a packed (n, 8) float32
+    array sorted by t_start: the same draws in the same order."""
+    ts = rng.uniform(*t_span, n).astype(np.float32)
+    te = ts + rng.uniform(0.1, max_len, n).astype(np.float32)
+    p0 = rng.uniform(0, box, (n, 3)).astype(np.float32)
+    p1 = p0 + rng.normal(0, 2.0, (n, 3)).astype(np.float32)
+    out = np.concatenate([p0, p1, ts[:, None], te[:, None]], axis=1)
+    return out[np.argsort(ts, kind="stable")]
+
+
+def clustered_segs(rng, n: int, nq: int, groups: int, *, extent: float,
+                   t_max: float = PROP_T_MAX):
+    """``n`` entry segments in ``groups`` compact clouds (side extent / 8),
+    cloud g in time window g and at one of two sites ``2 × extent``
+    apart (g even at the first), so the t_start-sorted tiles are
+    cloud-pure and a coarse bin spans both sites: the tile early-out and
+    the live-tile lists have work.  Velocities are C1's (~N(0, 1.5) per
+    axis a time unit): faster segments this late in time would widen the
+    prune slack (``solve_scale``) past the sites' distance.  ``nq``
+    queries are drawn inside random clouds of the first site.  Returns
+    packed (entries, queries)."""
+    span = t_max / groups
+    site = np.zeros((2, 3))
+    site[1, 0] = 2.0 * extent
+    centre = site[np.arange(groups) % 2] + rng.uniform(
+        0.0, extent / 8, (groups, 3))
+
+    def segs(g):
+        m = g.size
+        s = np.zeros((m, 8), np.float32)
+        s[:, 6] = (g + rng.uniform(0.0, 0.9, m)) * span
+        s[:, 7] = s[:, 6] + rng.uniform(0.1, 3.0, m)
+        s[:, 0:3] = centre[g] + rng.uniform(0.0, extent / 8, (m, 3))
+        s[:, 3:6] = s[:, 0:3] + rng.normal(0.0, 1.5, (m, 3)) * (
+            s[:, 7:8] - s[:, 6:7])
+        return s[np.argsort(s[:, 6], kind="stable")]
+    return (segs(np.sort(rng.integers(0, groups, n))),
+            segs(2 * rng.integers(0, (groups + 1) // 2, nq)))
+
+
+def near_tangent(rng, d: float, clusters: int, rows: int, *,
+                 background: int = 0, bg_queries: int = 0,
+                 mag=(1e3, 1e4), t_max: float = PROP_T_MAX):
+    """Near-tangent (entry, query) pairs mixed into a random database.
+
+    Time is cut into ``clusters`` windows.  Window k holds a cluster of
+    ``rows`` entry segments around a centre at magnitude ``mag`` (where
+    float32's ``c = |Δr|² − d²`` loses most) and one query whose float64
+    closest approach to the cluster's edge entry is ``d + δ``: δ has a
+    random sign and a magnitude log-uniform from 4× the round-off band
+    (``prune_limit(d, solve_scale(pair)) − d``) down to 1e-8 of it, or 0
+    (one pair in ten).  Half the pairs move in parallel along one axis
+    and cross, offset along another, and a fifth are static: their box
+    gap equals their closest approach, and the cluster's other rows lie
+    beyond the edge entry, so the whole cluster tile's box test is as
+    tight as the pair's.  The rest move in random directions.  The
+    ``background`` entries and ``bg_queries`` queries (``random_segs``
+    near the origin) lie in the gaps between windows.  Returns packed
+    (entries, queries), each sorted by t_start.
+    """
+    from repro_torch.core.index import prune_limit, solve_scale
+    span = t_max / clusters
+    width = 0.4 * span
+    ents, qrys = [], []
+    for k in range(clusters):
+        t0 = k * span
+        kind = rng.choice(["parallel", "static", "general"], p=[0.5, 0.2, 0.3])
+        a, b = rng.choice(3, 2, replace=False)
+        side = float(rng.choice([-1.0, 1.0]))
+        centre = rng.choice([-1.0, 1.0], 3) * np.exp(
+            rng.uniform(np.log(mag[0]), np.log(mag[1]), 3))
+        ts = t0 + rng.uniform(0.0, 0.3) * width
+        te = min(ts + float(np.exp(rng.uniform(np.log(0.1), np.log(10.0)))),
+                 t0 + width)
+        tc = ts + (te - ts) * rng.uniform(0.25, 0.75)
+        off = np.zeros(3)
+        off[b] = side
+        if kind == "parallel":
+            ve, vq = np.zeros(3), np.zeros(3)
+            ve[a], vq[a] = rng.choice([-1.0, 1.0], 2) * np.exp(
+                rng.uniform(np.log(0.1), np.log(30.0), 2))
+            vq[a] += np.sign(vq[a] - ve[a]) * 0.1
+        elif kind == "static":
+            ve, vq = np.zeros(3), np.zeros(3)
+        else:
+            ve = rng.normal(0.0, 1.0, 3) * np.exp(rng.uniform(np.log(0.1),
+                                                             np.log(30.0)))
+            dv = rng.normal(0.0, 1.0, 3)
+            dv *= np.exp(rng.uniform(np.log(0.1), np.log(30.0))) \
+                / np.linalg.norm(dv)
+            vq = ve - dv
+            off = np.cross(dv, rng.normal(0.0, 1.0, 3))
+            off /= np.linalg.norm(off)
+
+        q0, q1 = ts, te
+        if kind == "static":        # a static pair: common time is partial
+            q0 = ts + (te - ts) * rng.uniform(0.0, 0.5)
+            q1 = min(q0 + (te - ts), t0 + width)
+
+        def pair(sep):
+            e = np.r_[centre + ve * (ts - tc), centre + ve * (te - tc), ts, te]
+            qc = centre + off * sep
+            q = np.r_[qc + vq * (q0 - tc), qc + vq * (q1 - tc), q0, q1]
+            return e.astype(np.float32), q.astype(np.float32)
+        band = prune_limit(d, solve_scale(np.stack(pair(d)))) - d
+        delta = 0.0 if rng.random() < 0.1 else float(
+            rng.choice([-1.0, 1.0]) * 4.0 * band
+            * 10.0 ** rng.uniform(-8.0, 0.0))
+        e, q = pair(max(d + delta, 0.0))
+        # The cluster's other rows: beyond the edge entry along b (the
+        # side away from the query), inside the window, slow.
+        fill = np.zeros((rows - 1, 8), np.float32)
+        fill[:, 0:3] = centre + rng.uniform(-30.0, 30.0, (rows - 1, 3))
+        fill[:, b] = centre[b] - side * rng.uniform(0.5, 30.0, rows - 1)
+        fill[:, 3:6] = fill[:, 0:3] + rng.normal(0.0, 1.0, (rows - 1, 3))
+        fill[:, 3 + b] = fill[:, b] - side * rng.uniform(0.0, 1.0, rows - 1)
+        fill[:, 6] = t0 + rng.uniform(0.0, width - 3.0, rows - 1)
+        fill[:, 7] = fill[:, 6] + rng.uniform(0.1, 3.0, rows - 1)
+        ents += [e[None], fill]
+        qrys.append(q[None])
+    for count, out in ((background, ents), (bg_queries, qrys)):
+        if count:       # in [0.55, 0.85] of a span: between two windows
+            bg = random_segs(rng, count, t_span=(0.0, 1.0), max_len=0.2)
+            win = rng.integers(0, clusters, count)
+            bg[:, 6:8] = (bg[:, 6:8] * 0.25 + 0.55 + win[:, None]) * span
+            out.append(bg)
+    e, q = np.concatenate(ents), np.concatenate(qrys)
+    return (e[np.argsort(e[:, 6], kind="stable")],
+            q[np.argsort(q[:, 6], kind="stable")])
+
+
+def segments_of(packed: np.ndarray):
+    """The port's ``SegmentArray`` of packed (n, 8) rows (seg_id = row,
+    traj_id = row mod 7, as ``random_segments``)."""
+    from repro_torch.core.segments import PACKED_COLUMNS, SegmentArray
+    n = packed.shape[0]
+    return SegmentArray(**{c: np.ascontiguousarray(packed[:, k])
+                           for k, c in enumerate(PACKED_COLUMNS)},
+                        seg_id=np.arange(n, dtype=np.int32),
+                        traj_id=np.arange(n, dtype=np.int32) % 7)
+
+
+def closest_approach64(entries: np.ndarray, queries: np.ndarray,
+                       chunk: int = 1 << 20) -> torch.Tensor:
+    """(C, Q) float64 closest approach of every pair over its common time
+    (inf without one), on the host: ``tests/_torch_rows.closest_approach``
+    for all pairs at once."""
+    e = torch.from_numpy(entries.astype(np.float64))
+    q = torch.from_numpy(queries.astype(np.float64))
+
+    def motion(s):
+        dt = s[:, 7] - s[:, 6]
+        v = (s[:, 3:6] - s[:, 0:3]) / torch.where(dt > 0, dt, 1.0)[:, None]
+        v = torch.where((dt > 0)[:, None], v, 0.0)
+        return s[:, 0:3] - v * s[:, 6:7], v
+    ae, ve = motion(e)
+    aq, vq = motion(q)
+    out = torch.empty((e.shape[0], q.shape[0]), dtype=torch.float64)
+    step = max(1, chunk // max(q.shape[0], 1))
+    for c0 in range(0, e.shape[0], step):
+        sl = slice(c0, c0 + step)
+        a = ae[sl, None, :] - aq[None, :, :]
+        b = ve[sl, None, :] - vq[None, :, :]
+        lo = torch.maximum(e[sl, None, 6], q[None, :, 6])
+        hi = torch.minimum(e[sl, None, 7], q[None, :, 7])
+        bb = (b * b).sum(-1)
+        t = torch.where(bb > 0, -(a * b).sum(-1) / torch.where(
+            bb > 0, bb, 1.0), lo)
+        t = torch.minimum(torch.maximum(t, lo), hi)
+        r = a + b * t[..., None]
+        out[sl] = torch.where(hi >= lo, r.norm(dim=-1), torch.inf)
+    return out
+
+
+def pair_keys(res) -> set:
+    return set(zip(res.entry_idx.tolist(), res.query_idx.tolist()))
+
+
+def property_inputs(i: int):
+    """Case i's inputs: (family, d, entries, queries, policy fields)."""
+    rng = np.random.default_rng([PROP_SEED, i])
+    family = PROP_FAMILIES[i % len(PROP_FAMILIES)]
+    d = float(rng.uniform(0.2, 12.0))
+    n = int(np.exp(rng.uniform(np.log(2000), np.log(20000))))
+    nq = int(rng.integers(20, 201))
+    # S1's coordinates at scale 1.0 reach ~12.4 (the 10^6-segment GALAXY
+    # cloud), so the extents are that and 10× that.
+    extent = float(rng.choice([12.4, 124.0]))
+    num_bins = int(rng.choice([8, 64, 256, 1024]))
+    if family == "random":
+        ent = random_segs(rng, n, box=extent)
+        qry = random_segs(rng, nq, box=extent)
+    elif family == "clustered":
+        # Windows of ~512 rows (two tiles) and bins of four windows, so a
+        # bin spans both sites and its tiles are mostly window-pure.
+        groups = max(2, n // 512)
+        ent, qry = clustered_segs(rng, n, nq, groups, extent=extent)
+        num_bins = max(1, groups // 4)
+    else:
+        clusters = max(n // (2 * PROP_CLUSTER_ROWS), 4)
+        ent, qry = near_tangent(
+            rng, d, clusters, PROP_CLUSTER_ROWS,
+            background=n - clusters * PROP_CLUSTER_ROWS,
+            bg_queries=max(nq - clusters, 0))
+    fields = dict(num_bins=num_bins,
+                  index_kboxes=int(rng.choice([1, 2, 4])),
+                  capacity=int(rng.choice([4096, 4096, 4096, 64])))
+    return family, d, ent, qry, fields
+
+
+def property_case(i: int, dev) -> dict:
+    """Case i through ``db.query(backend="kernel")`` on ``dev``: the nine
+    pruning × compaction modes and the six batching algorithms
+    byte-identical to each other and to ``backend="torch"``; every
+    difference from the float64 host oracle borderline; the rows at d a
+    subset of those at 1.5 d; every interval inside the common time with
+    t_enter ≤ t_exit; with a small capacity, the overflowing batches
+    re-dispatched to the same rows, and one batch's ``count`` exact.
+    Raises ``AssertionError`` naming the case."""
+    from repro_torch.api import ExecutionPolicy, TrajectoryDB
+    from repro_torch.core.batching import ALGORITHMS
+    from repro_torch.core.index import prune_limit, solve_scale
+    from repro_torch.kernels import ops
+    family, d, ent, qry, fields = property_inputs(i)
+    label = f"properties case {i} ({family}, seed [{PROP_SEED}, {i}])"
+    db = TrajectoryDB.from_segments(segments_of(ent),
+                                    policy=ExecutionPolicy(**fields),
+                                    device=dev)
+    q = segments_of(qry)
+    base = db.query(q, d, backend="kernel", pruning="none",
+                    compaction="fused")
+    pruned = retries = 0
+    for pruning in ops.PRUNINGS:
+        for compaction in ops.COMPACTIONS:
+            res = db.query(q, d, backend="kernel", pruning=pruning,
+                           compaction=compaction)
+            identical(res, base, f"{label} {pruning}/{compaction}")
+            pruned += res.stats.pruned_tiles
+            retries += res.stats.total_retries
+    for algo in ALGORITHMS:
+        if algo == db.policy.batching:      # the spatial/fused run above
+            continue
+        res = db.query(q, d, backend="kernel", batching=algo)
+        identical(res, base, f"{label} {algo}")
+        retries += res.stats.total_retries
+    identical(db.query(q, d, backend="torch"), base, f"{label} torch")
+    # The float64 oracle: every difference inside its pair's own band
+    # (prune_limit at the pair's solve_scale; the database's scale, set
+    # by its fastest late segment, would be far wider).
+    entries = db.segments.packed()
+    ca = closest_approach64(entries, qry)
+    oracle = set(zip(*[x.tolist() for x in torch.nonzero(
+        ca <= d, as_tuple=True)]))
+    diff = oracle ^ pair_keys(base)
+    ratio = {(e, k): abs(float(ca[e, k]) - d) / (prune_limit(d, solve_scale(
+        np.stack([entries[e], qry[k]]))) - d) for e, k in diff}
+    far = [(e, k, float(ca[e, k]), r) for (e, k), r in ratio.items()
+           if r > 1.0]
+    check(not far, f"{label}: {len(far)} differences from the float64 "
+          f"oracle beyond their pair's band at d {d} (entry, query, "
+          f"closest approach, |ca − d| / band): {far[:5]}")
+    # Monotone in d.
+    big = db.query(q, 1.5 * d, backend="kernel")
+    lost = pair_keys(base) - pair_keys(big)
+    check(not lost, f"{label}: {len(lost)} rows at d missing at 1.5 d: "
+          f"{sorted(lost)[:5]}")
+    # Intervals inside the common time (float32, exact).
+    e, k = base.entry_idx, base.query_idx
+    lo = np.maximum(entries[e, 6], qry[k, 6])
+    hi = np.minimum(entries[e, 7], qry[k, 7])
+    check(bool(np.all(base.t_enter >= lo) and np.all(base.t_exit <= hi)
+               and np.all(base.t_enter <= base.t_exit)),
+          f"{label}: an interval outside its common time")
+    # Counts: a batch at a capacity below its hits still counts them all.
+    if fields["capacity"] < 4096:
+        e_dev = torch.from_numpy(entries).to(dev)
+        q_dev = torch.from_numpy(qry).to(dev)
+        want = int(ops.count_hits(e_dev, q_dev, d, device=dev,
+                                  use_kernel=False))
+        if want > 1:
+            for compaction in ops.COMPACTIONS:
+                out = ops.query_block(entries, qry, d, capacity=want // 2,
+                                      device=dev, compaction=compaction)
+                check(int(out["count"]) == want,
+                      f"{label}: {compaction} count {int(out['count'])} "
+                      f"!= {want} at capacity {want // 2}")
+    return {"family": family, "d": d, "entries": int(entries.shape[0]),
+            "queries": int(qry.shape[0]),
+            "pairs": int(entries.shape[0] * qry.shape[0]),
+            "hits": len(base), "borderline": len(diff),
+            "worst_band_ratio": max(ratio.values(), default=0.0),
+            "pruned_tiles": int(pruned), "retries": int(retries)}
+
+
+def no_slack_mismatches(i: int, dev) -> int:
+    """Case i (near-tangent) with the tile test's slack removed
+    (``ops._host_prune_threshold`` returning d): the pairs in which
+    ``spatial`` or ``hierarchical`` fused rows differ from ``none``'s
+    (single-query batches, so each query tile is one query's box)."""
+    from repro_torch.api import ExecutionPolicy, TrajectoryDB
+    from repro_torch.kernels import ops
+    _, d, ent, qry, fields = property_inputs(i)
+    db = TrajectoryDB.from_segments(
+        segments_of(ent), device=dev, policy=ExecutionPolicy(
+            **fields, batching="periodic", batch_params={"s": 1}))
+    q = segments_of(qry)
+    base = pair_keys(db.query(q, d, backend="kernel", pruning="none"))
+    orig = ops._host_prune_threshold
+    ops._host_prune_threshold = lambda d, entries, queries: float(d)
+    try:
+        return sum(len(base ^ pair_keys(db.query(
+            q, d, backend="kernel", pruning=p)))
+            for p in ("spatial", "hierarchical"))
+    finally:
+        ops._host_prune_threshold = orig
+
+
+def properties_path(dev, card, cases=range(PROP_CASES)) -> dict:
+    """Phase properties: ``property_case`` over ``cases``, the launches
+    counted over the sweep (every distance kernel must launch, the
+    live-tile kernels included), tiles pruned > 0, and the negative
+    control: without the slack, the near-tangent family's rows must
+    change in at least one case."""
+    t0 = time.perf_counter()
+    reset_launches()
+    out = [property_case(i, dev) for i in cases]
+    counts = {k: n for k, n in launches().items() if n}
+    by_family = {f: {"cases": 0, "pairs": 0, "hits": 0, "borderline": 0,
+                     "worst_band_ratio": 0.0} for f in PROP_FAMILIES}
+    for r in out:
+        row = by_family[r["family"]]
+        row["cases"] += 1
+        for k in ("pairs", "hits", "borderline"):
+            row[k] += r[k]
+        row["worst_band_ratio"] = max(row["worst_band_ratio"],
+                                      r["worst_band_ratio"])
+    pruned = sum(r["pruned_tiles"] for r in out)
+    check(pruned > 0, "properties: no tile was pruned in the sweep")
+    for k in REPLACES:
+        if k.startswith("distthresh"):
+            check(counts.get(k, 0) > 0, f"properties: {k} never launched")
+    tangent = [i for i in cases
+               if PROP_FAMILIES[i % len(PROP_FAMILIES)] == "near_tangent"]
+    t1 = time.perf_counter()
+    negative = {i: no_slack_mismatches(i, dev)
+                for i in tangent[:PROP_NEGATIVE_CASES]}
+    check(sum(negative.values()) > 0,
+          "properties: the negative control (no slack) never changed a row")
+    line = {"phase": "properties", "cases": len(out),
+            "pairs": sum(r["pairs"] for r in out),
+            "hits": sum(r["hits"] for r in out),
+            "borderline": {f: v["borderline"] for f, v in by_family.items()},
+            "worst_band_ratio": max(r["worst_band_ratio"] for r in out),
+            "families": by_family, "pruned_tiles": pruned,
+            "retries": sum(r["retries"] for r in out),
+            "launches": counts,
+            "live_tile_launches": sum(n for k, n in counts.items()
+                                      if "live" in k),
+            "negative_control": {
+                "tripped": True, "cases": len(negative),
+                "rows_changed": negative,
+                "seconds": time.perf_counter() - t1},
+            "seconds": time.perf_counter() - t0, "card": card}
+    emit(line)
+    return line
 
 
 # ----------------------------------------------------------------------
@@ -3897,6 +4298,12 @@ def main() -> int:
           "sass": sass if sass is not None else
           "null: the toolkit has no cuobjdump"})
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--property-case":
+        # Rerun one case of phase properties: its line, or the failure.
+        i = int(sys.argv[2])
+        emit({"property_case": i, **property_case(i, dev), "card": card})
+        return 0
+
     lint_path(card)
 
     t0 = time.perf_counter()
@@ -3917,6 +4324,7 @@ def main() -> int:
                                                     card)
     sentinel_path(s1, main_res, dense_res, shard_res, shard_pol, card)
     dbs, path_counts, mode_results = mode_matrix(dev, card)
+    properties_path(dev, card)
     shard_mode_counts = shard_modes(dbs, mode_results, card)
     rtree_path(dev, card)
     ladder_counts, tickets = serve_path(s1, main_res, card)

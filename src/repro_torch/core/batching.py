@@ -53,7 +53,7 @@ from typing import Callable
 
 import numpy as np
 
-from repro_torch.core.index import TemporalBinIndex
+from repro_torch.core.index import TemporalBinIndex, solve_scale
 from repro_torch.core.segments import SegmentArray
 
 
@@ -123,13 +123,14 @@ class SpatialInteractionCounter:
         self.level = level
         self.max_subranges = max_subranges
         self.qlo, self.qhi = queries.mbrs()      # (nq, 3) float64
+        self.qscale = solve_scale(queries.packed())
 
     def counts(self, qt0, qt1, lo, hi) -> np.ndarray:
         """Pruned candidate counts for batches with extents (qt0, qt1) and
         query-MBR unions (lo, hi) — all stacked arrays."""
         return self.index.estimate_pruned_candidates_batch(
             qt0, qt1, lo, hi, self.d, level=self.level,
-            max_subranges=self.max_subranges)
+            max_subranges=self.max_subranges, qscale=self.qscale)
 
 
 # ----------------------------------------------------------------------

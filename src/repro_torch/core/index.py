@@ -112,19 +112,50 @@ def prune_limit(d: float, scale: float) -> float:
     """Conservatively inflated threshold for MBR pruning.
 
     The kernels decide hits in float32; the quadratic coefficient
-    ``c = |Δr|² − d²`` carries an absolute round-off ~``eps32·scale²``
-    (``scale`` = largest coordinate magnitude), which can make a pair whose
-    true minimum distance slightly exceeds ``d`` register as a hit.  The
-    pruning test must keep such pairs, so the threshold is inflated by the
-    distance overshoot that error can cause: ``err/(2d)`` in the smooth
-    regime, ``sqrt(err)`` when ``d`` is tiny.  Exactness of pruning (no
-    dropped hit, ever) only needs the slack to be an upper bound; the
-    over-inflation costs a negligible amount of pruning.
+    ``c = |Δr|² − d²`` carries an absolute round-off ~``eps32·scale²``,
+    which can make a pair whose true minimum distance slightly exceeds
+    ``d`` register as a hit.  ``scale`` is the largest magnitude the solve
+    works with, :func:`solve_scale` — not the largest coordinate: the
+    solve anchors each segment at absolute time zero, so a fast segment
+    late in time enters it with magnitude ``|v|·t``.  The pruning test
+    must keep such pairs, so the threshold is inflated by the distance
+    overshoot that error can cause: ``err/(2d)`` in the smooth regime,
+    ``sqrt(err)`` when ``d`` is tiny.  Exactness of pruning (no dropped
+    hit, ever) only needs the slack to be an upper bound.  What the
+    wider slack costs, from ``prune_scale_report.py`` on the CPU (S1–S10,
+    C1, C3 at scales 0.01 and 0.1): the slack at ``d`` reaches 6.36 on
+    S3 (d 5, against 0.09 by the coordinates), pruning gives back up to
+    10.8 % of the interactions it removed (S3 hierarchical), and the
+    dispatched interactions grow by at most 0.32 %.
     """
     d = float(d)
     err = 4e-6 * scale * scale
     slack = min(err / max(2.0 * d, 1e-12), float(np.sqrt(err)))
     return d + 1e-5 * d + slack + 1e-9
+
+
+def solve_scale(packed: np.ndarray) -> float:
+    """The largest magnitude the float32 interval solve handles for these
+    packed (n, 8) segments, at least 1: per segment and axis, the larger
+    endpoint coordinate plus ``|velocity|·|t_start|``.
+
+    The solve (``repro_torch.kernels.ref.interval_math``) anchors each
+    segment at time zero, ``x0 − v·ts``, so its round-off grows with the
+    terms of that anchor, not only with the coordinates.  Sizing
+    :func:`prune_limit` by the coordinates alone let a fast pair late in
+    time register as a float32 hit beyond the inflated threshold, where
+    the box test then dropped it.
+    """
+    p = np.asarray(packed, np.float64).reshape(-1, 8)
+    if p.shape[0] == 0:
+        return 1.0
+    dt = p[:, 7] - p[:, 6]
+    live = dt > 0
+    v = (p[:, 3:6] - p[:, 0:3]) / np.where(live, dt, 1.0)[:, None]
+    v = np.where(live[:, None], v, 0.0)
+    mag = (np.maximum(np.abs(p[:, 0:3]), np.abs(p[:, 3:6]))
+           + np.abs(v) * np.abs(p[:, 6:7]))
+    return float(max(mag.max(), 1.0))
 
 
 @dataclasses.dataclass
@@ -147,7 +178,7 @@ class TemporalBinIndex:
     prefix_hi: np.ndarray
     suffix_lo: np.ndarray    # (m, 3) — union MBR of bins [j, m)
     suffix_hi: np.ndarray
-    _prune_scale: float      # largest |coordinate| in the db (slack sizing)
+    _prune_scale: float      # solve_scale of the db (slack sizing)
     _coarse_first: np.ndarray  # (k,) int64 — coarse-bin segment ranges
     _coarse_last: np.ndarray
     _coarse_lo: np.ndarray     # (k, 3) — coarse-bin union MBRs
@@ -218,7 +249,7 @@ class TemporalBinIndex:
         prefix_hi = np.maximum.accumulate(mbr_hi, axis=0)
         suffix_lo = np.minimum.accumulate(mbr_lo[::-1], axis=0)[::-1].copy()
         suffix_hi = np.maximum.accumulate(mbr_hi[::-1], axis=0)[::-1].copy()
-        scale = float(max(np.abs(seg_lo).max(), np.abs(seg_hi).max(), 1.0))
+        scale = solve_scale(db.packed())
         # Coarse pricing grid: chunks of fine bins unioned down to at most
         # COARSE_GRID_BINS boxes; chunk c's segment range is contiguous
         # because the fine bins partition the sorted segment array.
@@ -405,13 +436,16 @@ class TemporalBinIndex:
     # ------------------------------------------------------------------
     # spatial pruning
     # ------------------------------------------------------------------
-    def _limit(self, d: float, qlo: np.ndarray, qhi: np.ndarray) -> float:
-        """The inflated prune threshold for one query MBR (or a stack)."""
+    def _limit(self, d: float, qlo: np.ndarray, qhi: np.ndarray,
+               qscale: float) -> float:
+        """The inflated prune threshold for one query MBR (or a stack).
+        ``qscale`` is the queries' :func:`solve_scale`; the MBR alone
+        gives only their coordinates."""
         finite = np.isfinite(qlo) & np.isfinite(qhi)
-        qscale = (float(max(np.abs(qlo[finite]).max(initial=0.0),
+        cscale = (float(max(np.abs(qlo[finite]).max(initial=0.0),
                             np.abs(qhi[finite]).max(initial=0.0)))
                   if finite.any() else 0.0)
-        return prune_limit(d, max(self._prune_scale, qscale))
+        return prune_limit(d, max(self._prune_scale, cscale, float(qscale)))
 
     def _bin_runs(self, bins: slice, j_lo: int, qt0: float, qlo, qhi,
                   lim2: float, first: int, last: int) -> list[list[int]]:
@@ -462,7 +496,8 @@ class TemporalBinIndex:
     def candidate_subranges(self, qt0: float, qt1: float,
                             qlo: np.ndarray, qhi: np.ndarray, d: float, *,
                             max_subranges: int = DEFAULT_MAX_SUBRANGES,
-                            level: str = "bin") -> list[tuple[int, int]]:
+                            level: str = "bin",
+                            qscale: float) -> list[tuple[int, int]]:
         """Spatially pruned candidate sub-ranges for one query extent.
 
         ``qlo``/``qhi`` is the (3,) union MBR of the query segments sharing
@@ -482,7 +517,9 @@ class TemporalBinIndex:
         work — pruning may only shrink, never grow, the result, and on
         multi-modal extents a too-small cap silently merges across huge
         gaps, which is why the cap is policy-tunable and priced by
-        :meth:`estimate_pruned_candidates_batch`).
+        :meth:`estimate_pruned_candidates_batch`).  ``qscale`` (required)
+        is the queries' :func:`solve_scale`, which sizes the threshold's
+        slack with the database's.
         """
         r = self._bin_range(qt0, qt1)
         if r is None:
@@ -494,7 +531,7 @@ class TemporalBinIndex:
             return []
         qlo = np.asarray(qlo, np.float64)
         qhi = np.asarray(qhi, np.float64)
-        lim = self._limit(d, qlo, qhi)
+        lim = self._limit(d, qlo, qhi, qscale)
         lim2 = lim * lim
         # Whole-range quick reject: the range's true MBR union is a subset
         # of both prefix[j_hi] and suffix[j_lo], so the larger box distance
@@ -532,18 +569,18 @@ class TemporalBinIndex:
     def pruned_num_candidates(self, qt0: float, qt1: float, qlo, qhi,
                               d: float, *,
                               max_subranges: int = DEFAULT_MAX_SUBRANGES,
-                              level: str = "bin") -> int:
+                              level: str = "bin", qscale: float) -> int:
         """Exact candidate count surviving :meth:`candidate_subranges`."""
         return sum(l - f + 1 for f, l in
                    self.candidate_subranges(qt0, qt1, qlo, qhi, d,
                                             max_subranges=max_subranges,
-                                            level=level))
+                                            level=level, qscale=qscale))
 
     def estimate_pruned_candidates_batch(self, qt0, qt1, qlo, qhi,
                                          d: float, *,
                                          level: str = "bin",
-                                         max_subranges: int | None = None
-                                         ) -> np.ndarray:
+                                         max_subranges: int | None = None,
+                                         qscale: float) -> np.ndarray:
         """Vectorized pruned-candidate estimate over the coarse bin grid.
 
         ``qt0``/``qt1`` are (n,) extents, ``qlo``/``qhi`` (n, 3) query-MBR
@@ -574,7 +611,7 @@ class TemporalBinIndex:
         ov = (np.minimum(last[:, None], cl[None, :])
               - np.maximum(first[:, None], cf[None, :]) + 1)
         ov = np.maximum(ov, 0)
-        lim = self._limit(float(d), qlo, qhi)
+        lim = self._limit(float(d), qlo, qhi, qscale)
         if level == "box":
             gap2 = mbr_gap2(self._coarse_klo[None], self._coarse_khi[None],
                             qlo[:, None, None], qhi[:, None, None])  # (n,k,K)

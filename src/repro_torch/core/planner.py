@@ -350,6 +350,7 @@ class QueryPlanner:
                 "max_subranges": self.max_subranges}
             subs = self.index.candidate_subranges(b.qt0, b.qt1, lo, hi,
                                                   counter.d, level=level,
+                                                  qscale=counter.qscale,
                                                   **sub_kw)
             if not subs:
                 out.append(QueryBatch(b.q_first, b.q_last, b.qt0, b.qt1,

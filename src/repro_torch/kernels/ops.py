@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import faults
-from repro_torch.core.index import mbr_gap2, prune_limit
+from repro_torch.core.index import mbr_gap2, prune_limit, solve_scale
 from repro_torch.device import resolve_device
 from repro_torch.kernels import distthresh as _dt
 from repro_torch.kernels import ref
@@ -161,11 +161,9 @@ def _host_tile_mbrs(packed: np.ndarray, blk: int) -> np.ndarray:
 def _host_prune_threshold(d, entries: np.ndarray,
                           queries: np.ndarray) -> float:
     """The conservatively inflated tile-prune threshold at dispatch time:
-    ``prune_limit`` evaluated at this dispatch's largest coordinate
-    magnitude."""
-    scale = max(float(np.abs(entries[:, 0:6]).max(initial=0.0)),
-                float(np.abs(queries[:, 0:6]).max(initial=0.0)), 1.0)
-    return prune_limit(float(d), scale)
+    ``prune_limit`` evaluated at this dispatch's ``solve_scale``."""
+    return prune_limit(float(d), max(solve_scale(entries),
+                                     solve_scale(queries)))
 
 
 def _slot_bucket(n: int, minimum: int = 64) -> int:

@@ -13,7 +13,7 @@ differently (ROADMAP, queue C: "Borderline f32 hits").  At most
 """
 import numpy as np
 
-from repro_torch.core.index import prune_limit
+from repro_torch.core.index import prune_limit, solve_scale
 
 RTOL, ATOL = 1e-4, 1e-3
 
@@ -41,11 +41,15 @@ def is_borderline(e: np.ndarray, q: np.ndarray, d: float,
 
 
 def assert_same_rows(got, want, label="", *, entries=None, queries=None,
-                     d=None, max_borderline=0):
+                     d=None, max_borderline=0, pair_scale=False):
     """``got`` and ``want`` (``QueryResult``-like, canonical order) hold
     the same rows.  With ``entries`` (the sorted database, packed) and
     ``queries`` (packed, the order ``query_idx`` refers to), up to
-    ``max_borderline`` borderline pairs may differ."""
+    ``max_borderline`` borderline pairs may differ.  The band's scale is
+    the largest coordinate of both sides, or with ``pair_scale`` each
+    pair's own ``repro_torch.core.index.solve_scale``: the magnitude the
+    float32 solve works with for that pair, fast segments late in time
+    included."""
     kg = list(zip(got.query_idx.tolist(), got.entry_idx.tolist()))
     kw = list(zip(want.query_idx.tolist(), want.entry_idx.tolist()))
     diff = sorted(set(kg) ^ set(kw))
@@ -55,6 +59,8 @@ def assert_same_rows(got, want, label="", *, entries=None, queries=None,
         scale = max(float(np.abs(entries[:, 0:6]).max()),
                     float(np.abs(queries[:, 0:6]).max()), 1.0)
         for qi, ei in diff:
+            if pair_scale:
+                scale = solve_scale(np.stack([entries[ei], queries[qi]]))
             assert is_borderline(entries[ei], queries[qi], d, scale), (
                 label, (qi, ei), closest_approach(entries[ei], queries[qi]))
     common = set(kg) & set(kw)

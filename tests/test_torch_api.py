@@ -180,6 +180,12 @@ def test_state_carry_over(kboxes):
     own = TemporalBinIndex.build(port_segs, 8, kboxes=kboxes)
     for f in dataclasses.fields(TemporalBinIndex):
         a, b = getattr(port_index, f.name), getattr(own, f.name)
+        if f.name == "_prune_scale":
+            # The reference sizes the prune slack by the coordinates, the
+            # port by solve_scale (ROADMAP, deliberate differences); the
+            # engine takes the port's for a carried index.
+            assert a <= b, (a, b)
+            continue
         if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
             np.testing.assert_array_equal(a, b, err_msg=f.name)
         else:
@@ -189,6 +195,7 @@ def test_state_carry_over(kboxes):
     tdb = TrajectoryDB.from_segments(
         port_segs, policy=ExecutionPolicy(**pol), device=CPU,
         index=port_index)
+    assert tdb.index._prune_scale == own._prune_scale
     rdb = R.TrajectoryDB.from_segments(segs, policy=R.ExecutionPolicy(**pol))
     q_port = state.segments_from_numpy(vars(queries))
     assert_same_result(tdb.query(q_port, d), rdb.query(queries, d,
