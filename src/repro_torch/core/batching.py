@@ -85,7 +85,9 @@ class BatchPlan:
     algorithm: str
     params: dict
     batches: list[QueryBatch]
-    plan_seconds: float    # time spent computing the plan (paper §7.4 charges this)
+    #: the batching algorithm's own time; ``QueryPlan.plan_seconds`` covers
+    #: all of planning, which paper §7.4 charges.
+    plan_seconds: float
 
     @property
     def total_interactions(self) -> int:

@@ -27,6 +27,7 @@ from repro_torch.core.index import (DEFAULT_NUM_BINS, TemporalBinIndex,
 from repro_torch.core.planner import (QueryPlan, as_query_plan,
                                       bucket_capacity as _bucket)
 from repro_torch.core.segments import SegmentArray
+from repro_torch.core.trace import span
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.distthresh import DEFAULT_CAND_BLK, DEFAULT_QRY_BLK
@@ -38,19 +39,21 @@ def _stage_to_host(out: dict, device: torch.device) -> dict:
     device has passed a fence recorded after this call.  Counters the host
     already knows (Python ints) pass through; CPU outputs are already on
     the host.  While a sync sentinel watches, the staged tensors are handed
-    to it, so it can tell a read before the fence from one after."""
-    if device.type != "cuda":
-        return out
-    host, staged = {}, []
-    for k, v in out.items():
-        if isinstance(v, torch.Tensor):
-            h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            h.copy_(v, non_blocking=True)
-            staged.append(h)
-            v = h
-        host[k] = v
-    watch_staged(staged, device)
-    return host
+    to it, so it can tell a read before the fence from one after.  The
+    span ``dispatch.stage`` covers it."""
+    with span("dispatch.stage"):
+        if device.type != "cuda":
+            return out
+        host, staged = {}, []
+        for k, v in out.items():
+            if isinstance(v, torch.Tensor):
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                h.copy_(v, non_blocking=True)
+                staged.append(h)
+                v = h
+            host[k] = v
+        watch_staged(staged, device)
+        return host
 
 
 class _QueryBlockDispatcher:

@@ -24,9 +24,7 @@ are recorded and counted; there is nothing to wait for.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import threading
 import time
 from typing import Protocol, runtime_checkable
 
@@ -36,34 +34,9 @@ import torch
 from repro_torch.core.batching import QueryBatch
 from repro_torch.core.errors import CapacityError
 from repro_torch.core.planner import QueryPlan
-
-
-# ----------------------------------------------------------------------
-# Dispatch-group attribution (lint/sentinel seam).
-# ----------------------------------------------------------------------
-#: Per-thread label of the dispatch group currently executing — published
-#: by both executors so observability layers (``repro_torch.lint.sentinel``'s
-#: read attribution) can blame a device→host stall on the group that
-#: performed it without the executors knowing the sentinel exists.
-#: Thread-local because the deadline scheduler runs whole groups on pool
-#: threads concurrently.
-_dispatch_context = threading.local()
-
-
-def current_group_label() -> str | None:
-    """The calling thread's active dispatch-group label (e.g.
-    ``"pipelined:finish:3"``), or ``None`` outside any group scope."""
-    return getattr(_dispatch_context, "label", None)
-
-
-@contextlib.contextmanager
-def _group_scope(label: str):
-    prev = getattr(_dispatch_context, "label", None)
-    _dispatch_context.label = label
-    try:
-        yield
-    finally:
-        _dispatch_context.label = prev
+# The dispatch-group seam lives in ``core.trace``; both names stay here
+# for the sentinel and the executors below.
+from repro_torch.core.trace import _group_scope, collect, current_group_label
 
 
 #: Set by an active ``repro_torch.lint.sentinel.SyncSentinel`` (else
@@ -143,6 +116,7 @@ class BatchStats:
 
 @dataclasses.dataclass
 class ExecStats:
+    #: all of ``QueryPlanner.plan`` (``QueryPlan.plan_seconds``).
     plan_seconds: float
     total_seconds: float
     batches: list[BatchStats]
@@ -161,6 +135,9 @@ class ExecStats:
     #: degradation-ladder steps taken while producing this result
     #: (filled in by the serving broker; empty on a clean execution).
     degradations: list = dataclasses.field(default_factory=list)
+    #: program span name -> (calls, host seconds) over the plan and this
+    #: run (``repro_torch.core.trace``); empty unless a profiler recorded.
+    spans: dict = dataclasses.field(default_factory=dict)
 
     @property
     def pruned_tiles(self) -> int:
@@ -285,19 +262,29 @@ def _empty_stats(batch: QueryBatch) -> BatchStats:
 # ----------------------------------------------------------------------
 # Executors.
 # ----------------------------------------------------------------------
-class SyncExecutor:
-    """Classic per-batch loop: dispatch → wait → (maybe retry) → next.
-    Per-invocation device timings are observable (the §8 perf-model fits
-    need them)."""
-
-    pipelined = False
-
+class _Executor:
     def __init__(self, dispatcher: BatchDispatcher, *,
                  max_capacity_retries: int = 3):
         self.dispatcher = dispatcher
         self.max_capacity_retries = int(max_capacity_retries)
 
     def run(self, plan: QueryPlan) -> tuple[ResultSet, ExecStats]:
+        """Execute ``plan``; the stats carry the plan's spans and the
+        spans of this run's dispatches (this thread's)."""
+        with collect(plan.spans) as spans:
+            rs, stats = self._run(plan)
+        stats.spans = spans
+        return rs, stats
+
+
+class SyncExecutor(_Executor):
+    """Classic per-batch loop: dispatch → wait → (maybe retry) → next.
+    Per-invocation device timings are observable (the §8 perf-model fits
+    need them)."""
+
+    pipelined = False
+
+    def _run(self, plan: QueryPlan) -> tuple[ResultSet, ExecStats]:
         t_begin = time.perf_counter()
         disp = self.dispatcher
         nb = plan.num_batches
@@ -351,7 +338,7 @@ class SyncExecutor:
                           pruned_interactions=plan.pruned_interactions))
 
 
-class PipelinedExecutor:
+class PipelinedExecutor(_Executor):
     """Two-phase group-wise executor: dispatch everything in a group,
     record a fence, and — after the *next* group has been dispatched —
     wait on it once, read every exact count, re-dispatch only the
@@ -362,12 +349,7 @@ class PipelinedExecutor:
 
     pipelined = True
 
-    def __init__(self, dispatcher: BatchDispatcher, *,
-                 max_capacity_retries: int = 3):
-        self.dispatcher = dispatcher
-        self.max_capacity_retries = int(max_capacity_retries)
-
-    def run(self, plan: QueryPlan) -> tuple[ResultSet, ExecStats]:
+    def _run(self, plan: QueryPlan) -> tuple[ResultSet, ExecStats]:
         t_begin = time.perf_counter()
         disp = self.dispatcher
         nb = plan.num_batches

@@ -43,6 +43,7 @@ from repro_torch.core.batching import (ALGORITHMS, BatchPlan, QueryBatch,
                                        SpatialInteractionCounter)
 from repro_torch.core.index import TemporalBinIndex
 from repro_torch.core.segments import SegmentArray
+from repro_torch.core.trace import collect, span
 
 #: Spatial-pruning strategies a planner (and ``ExecutionPolicy.pruning``)
 #: accepts: ``"spatial"`` trims-and-splits candidate ranges against the
@@ -104,7 +105,10 @@ class QueryPlan:
     batch_plan: BatchPlan
     capacities: list[int]          # result-buffer slots per batch (bucketed)
     groups: list[list[int]]        # dispatch groups: contiguous batch index runs
-    plan_seconds: float            # batching + refinement time
+    #: all of :meth:`QueryPlanner.plan` (pricing set-up, batching,
+    #: sub-ranges, refinement); for a plan built by ``refine`` alone, the
+    #: batching algorithm's time plus refinement's.
+    plan_seconds: float
     #: per-original-batch split counts when spatial pruning split candidate
     #: ranges (sum == num_batches); ``None`` when no splitting happened.
     #: Sibling batches of one run share a query range, so dispatch groups
@@ -114,6 +118,9 @@ class QueryPlan:
     #: interactions removed by spatial pruning (original temporal workload
     #: minus the planned workload) — surfaced through ``ExecStats``.
     pruned_interactions: int = 0
+    #: the planner's spans, name -> (calls, host seconds)
+    #: (``repro_torch.core.trace``); empty unless a profiler recorded.
+    spans: dict = dataclasses.field(default_factory=dict)
 
     # -- BatchPlan passthrough (stable consumer surface) -----------------
     @property
@@ -299,25 +306,37 @@ class QueryPlanner:
         """Run the batching algorithm and refine the result.  Queries must
         already be sorted by ``t_start`` (the facade guarantees it).
         ``d`` is the distance threshold — required for spatial pruning
-        (``None`` plans temporal-only regardless of the pruning knob)."""
-        counter = None
-        if self.pruning in ("spatial", "hierarchical") and d is not None:
-            counter = SpatialInteractionCounter(
-                self.index, sorted_queries, float(d),
-                level="box" if self.pruning == "hierarchical" else "bin",
-                max_subranges=self.max_subranges)
-        try:
-            bp = ALGORITHMS[self.algorithm](self.index, sorted_queries,
-                                            counter=counter, **self.params)
-        except TypeError as e:
-            raise ValueError(
-                f"batch params {self.params} do not match algorithm "
-                f"{self.algorithm!r}: {e} (pass batching=... alongside the "
-                f"algorithm's parameters)") from None
-        if counter is None:
-            return self.refine(bp)
-        bp, runs, pruned = self._prune_batches(bp, counter)
-        return self.refine(bp, runs=runs, pruned_interactions=pruned)
+        (``None`` plans temporal-only regardless of the pruning knob).
+        The plan's ``plan_seconds`` covers this whole call."""
+        t0 = time.perf_counter()
+        with collect() as spans:
+            counter = None
+            if self.pruning in ("spatial", "hierarchical") and d is not None:
+                with span("plan.price_setup"):
+                    counter = SpatialInteractionCounter(
+                        self.index, sorted_queries, float(d),
+                        level="box" if self.pruning == "hierarchical"
+                        else "bin", max_subranges=self.max_subranges)
+            try:
+                with span("plan.batching"):
+                    bp = ALGORITHMS[self.algorithm](
+                        self.index, sorted_queries, counter=counter,
+                        **self.params)
+            except TypeError as e:
+                raise ValueError(
+                    f"batch params {self.params} do not match algorithm "
+                    f"{self.algorithm!r}: {e} (pass batching=... alongside "
+                    f"the algorithm's parameters)") from None
+            runs, pruned = None, 0
+            if counter is not None:
+                with span("plan.subranges"):
+                    bp, runs, pruned = self._prune_batches(bp, counter)
+            with span("plan.refine"):
+                qplan = self.refine(bp, runs=runs,
+                                    pruned_interactions=pruned)
+        qplan.plan_seconds = time.perf_counter() - t0
+        qplan.spans = spans
+        return qplan
 
     def _prune_batches(self, bp: BatchPlan,
                        counter: SpatialInteractionCounter

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch import faults
 from repro_torch.core.index import mbr_gap2, prune_limit, solve_scale
+from repro_torch.core.trace import span
 from repro_torch.device import resolve_device
 from repro_torch.kernels import distthresh as _dt
 from repro_torch.kernels import ref
@@ -282,9 +283,13 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
     c, q = entries.shape[0], queries.shape[0]
     if c == 0 or q == 0:
         return _empty_block(capacity, dev)
-    e_dev = entries_dev if entries_dev is not None else _as_tensor(entries, dev)
-    q_dev = (queries_t_dev if queries_t_dev is not None
-             else _as_tensor(queries, dev).T.contiguous())
+    e_dev, q_dev = entries_dev, queries_t_dev
+    if e_dev is None or q_dev is None:
+        with span("dispatch.upload"):
+            if e_dev is None:
+                e_dev = _as_tensor(entries, dev)
+            if q_dev is None:
+                q_dev = _as_tensor(queries, dev).T.contiguous()
     if e_dev.device != dev or q_dev.device != dev:
         raise ValueError(f"resident inputs on {e_dev.device}/{q_dev.device}, "
                          f"not on {dev}")
@@ -293,8 +298,10 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
                       cand_blk=cand_blk, qry_blk=qry_blk, pruning=pruning,
                       append="rowloop" if compaction == "fused_rowloop"
                       else "chunk")
-    return _dense(e_dev, q_dev, d, capacity=capacity, use_kernel=use_kernel,
-                  cand_blk=cand_blk, qry_blk=qry_blk)
+    with span("dispatch.launch"):
+        return _dense(e_dev, q_dev, d, capacity=capacity,
+                      use_kernel=use_kernel, cand_blk=cand_blk,
+                      qry_blk=qry_blk)
 
 
 def _fused(entries, queries, e_dev, q_dev, d, *, capacity, cand_blk, qry_blk,
@@ -305,25 +312,31 @@ def _fused(entries, queries, e_dev, q_dev, d, *, capacity, cand_blk, qry_blk,
     kw = dict(capacity=capacity, cand_blk=cand_blk, qry_blk=qry_blk,
               valid_c=c, valid_q=q, append=append, device=dev)
     if pruning == "hierarchical":
-        prep = _host_live_tiles(entries, queries, d, cand_blk, qry_blk)
+        with span("dispatch.prep"):
+            prep = _host_live_tiles(entries, queries, d, cand_blk, qry_blk)
         if prep is not None:
             tile_i, tile_j, n_live, _ = prep
             if int(n_live[0]) == 0:
                 return _empty_block(capacity, dev, num_tiles)
-            e_idx, q_idx, t_enter, t_exit, count = _dt.distthresh_compact_live(
-                e_dev, q_dev, d, to_device(tile_i, dev), to_device(tile_j, dev),
-                to_device(n_live, dev), **kw)
+            with span("dispatch.upload"):
+                lists = [to_device(a, dev) for a in (tile_i, tile_j, n_live)]
+            with span("dispatch.launch"):
+                e_idx, q_idx, t_enter, t_exit, count = (
+                    _dt.distthresh_compact_live(e_dev, q_dev, d, *lists, **kw))
             return _block(e_idx, q_idx, t_enter, t_exit, count,
                           num_tiles - int(n_live[0]), num_tiles)
     prune_kw = {}
     if pruning == "spatial":
-        prep = _host_tile_prune(entries, queries, d, cand_blk, qry_blk)
+        with span("dispatch.prep"):
+            prep = _host_tile_prune(entries, queries, d, cand_blk, qry_blk)
         if prep is not None:
             e_mbr, q_mbr, d_prune = prep
-            prune_kw = dict(e_mbr=to_device(e_mbr, dev),
-                            q_mbr=to_device(q_mbr, dev), d_prune=d_prune)
-    e_idx, q_idx, t_enter, t_exit, count, pruned = _dt.distthresh_compact(
-        e_dev, q_dev, d, **kw, **prune_kw)
+            with span("dispatch.upload"):
+                prune_kw = dict(e_mbr=to_device(e_mbr, dev),
+                                q_mbr=to_device(q_mbr, dev), d_prune=d_prune)
+    with span("dispatch.launch"):
+        e_idx, q_idx, t_enter, t_exit, count, pruned = _dt.distthresh_compact(
+            e_dev, q_dev, d, **kw, **prune_kw)
     return _block(e_idx, q_idx, t_enter, t_exit, count, pruned, num_tiles)
 
 
