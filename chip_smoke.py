@@ -46,7 +46,10 @@ Phases, each printing one JSON line (``"phase": ...``):
    blocks: S1's largest batch shape, ragged tiles, a last tile shorter
    than one block, an overflow inside a lone block, dead tiles armed);
    and the dense kernel on ``DENSE_CASES`` (Q > 256, one entry, one
-   query, ragged row blocks, ``queries_t`` a column slice).  Hit sets,
+   query, ragged row blocks, ``queries_t`` a column slice); the
+   tile-prune preparation (``distthresh_tile_prep``) on the check tiles
+   against the host helpers, and the block cases armed with its
+   operands.  Hit sets,
    ``count`` and ``pruned`` must be exact; intervals agree within
    ``rtol=1e-6, atol=1e-5`` (same float32 operations in the same order,
    built with ``-fmad=false``; the atomic append changes only the row
@@ -57,9 +60,17 @@ Phases, each printing one JSON line (``"phase": ...``):
    2,500 trajectories × 400 segments = 10^6 entry segments, 100 query
    trajectories, d = 1) under the default policy, ``backend="kernel"``
    against ``backend="torch"``, then the same query with
-   ``compaction="dense"`` (phase main_dense); then one warm execution of
-   the main path's plan under ``torch.profiler`` (device busy share,
-   device time by kernel), and one of the dense path's (profile_dense).
+   ``compaction="dense"`` (phase main_dense); then phase prep:
+   ``distthresh_tile_prep`` against the host helpers (``d_prune`` bit for
+   bit, the boxes bit for bit but for the sign of a zero) on every
+   dispatched slice of S1 (10 query trajectories under the default
+   policy, all 100 at periodic s = 64), of S10 at scale 1.0 (10 query
+   trajectories) and of phase properties' near-tangent cases, at float32
+   and float64 d (``python3 chip_smoke.py --prep`` builds the kernels and
+   runs the distance kernels' checks and this phase alone); then one warm
+   execution of the main path's plan under ``torch.profiler`` (device
+   busy share, device time by kernel), and one of the dense path's
+   (profile_dense).
    The profiles execute the plans phase main ran.  Then phase shard:
    the same S1 query through ``backend="shard"`` with the kernels on the
    default devices (one pod on the card), its plan once more through a
@@ -249,7 +260,9 @@ to 0 just before it and reads them just after (``kernel_path``,
 ``shard_query``, and per ticket in phases serve and shard_serve): it
 fails unless the path's own kernel launched, no other kernel did, and
 (on ``db.query``) the launches match the dispatches (for the shard
-backend, the live pods' dispatches).
+backend, the live pods' dispatches); ``distthresh_tile_prep`` must
+launch once per compact launch on the spatial fused routes and never on
+the others (``check_prep``).
 
 Then the kernel table (``{"kernels": [...]}``), the ``nvidia-smi`` name
 and power-limit line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -345,8 +358,14 @@ REPLACES = {
     "distthresh_compact_live": "src/repro/kernels/distthresh.py:782",
     "distthresh_compact_rowloop": "src/repro/kernels/distthresh.py:640",
     "distthresh_compact_live_rowloop": "src/repro/kernels/distthresh.py:782",
+    "distthresh_tile_prep": "none: the reference builds these operands in "
+                            "jnp (src/repro/kernels/ops.py:194-221)",
     "flashattn": "src/repro/kernels/flashattn.py:84",
 }
+#: The spatial route's tile-prune preparation: one launch before each
+#: launch of the compact kernel it arms, counted apart from the distance
+#: kernels (``check_prep``).
+PREP = "distthresh_tile_prep"
 
 
 def source(name: str) -> str:
@@ -498,6 +517,48 @@ def compare_compact(k, p_full, capacity, label):
     return 0.0
 
 
+def host_armed(e_np, q_np, d, cand_blk: int, qry_blk: int, dev) -> dict:
+    """The compact kernels' early-out operands from the host helpers, the
+    threshold as a number: the wrapper's other ``d_prune`` form."""
+    from repro_torch.kernels import ops
+    return dict(
+        e_mbr=torch.from_numpy(ops._host_tile_mbrs(e_np, cand_blk)).to(dev),
+        q_mbr=torch.from_numpy(ops._host_tile_mbrs(q_np, qry_blk)).to(dev),
+        d_prune=np.float32(ops._host_prune_threshold(d, e_np, q_np)))
+
+
+def _zero_sign(a: np.ndarray) -> np.ndarray:
+    """``a``'s bits with -0.0 read as +0.0 (the box test cannot tell
+    them apart, and numpy's min and max do not fix which zero they keep)."""
+    return np.where(a == 0, np.float32(0), a).view(np.uint32)
+
+
+def prep_equal(e_np, q_np, e, qt, d, label, cand_blk=256,
+               qry_blk=256) -> int:
+    """``distthresh_tile_prep`` on the card against the host helpers on
+    the same rows: ``d_prune`` bit for bit, the boxes bit for bit but for
+    the sign of a zero.  Returns the box entries whose bits differ only in
+    that sign."""
+    from repro_torch.kernels import distthresh as dt
+    from repro_torch.kernels import ops
+    got = dt.distthresh_tile_prep(e, qt, d, cand_blk=cand_blk,
+                                  qry_blk=qry_blk, device=e.device)
+    want_d = np.float32(ops._host_prune_threshold(d, e_np, q_np))
+    got_d = got[2].cpu().numpy()
+    check(got_d.view(np.uint32) == want_d.view(np.uint32),
+          f"{label}: d_prune {float(got_d)!r}, host {float(want_d)!r}")
+    zeros = 0
+    for g, want, what in ((got[0], ops._host_tile_mbrs(e_np, cand_blk),
+                           "e_mbr"),
+                          (got[1], ops._host_tile_mbrs(q_np, qry_blk),
+                           "q_mbr")):
+        g = g.cpu().numpy()
+        check(g.shape == want.shape and np.array_equal(
+            _zero_sign(g), _zero_sign(want)), f"{label}: {what} differs")
+        zeros += int((g.view(np.uint32) != want.view(np.uint32)).sum())
+    return zeros
+
+
 def check_row_runs(k, qry_blk: int, label) -> None:
     """The row-loop append order (ample capacity): each entry row's hits
     in one query tile take consecutive slots, in ascending
@@ -536,13 +597,10 @@ def kernel_checks(dev) -> dict:
                                           float((a - b).abs().max()))
         hits = int(pd[2].sum())
         check(hits > 0, "no hits in the check tiles")
-        prep = ops._host_tile_prune(e_np, q_np, d, cb, qb)
         live = ops._host_live_tiles(e_np, q_np, d, cb, qb)
-        check(prep is not None and live is not None,
-              "check tiles leave nothing to prune")
-        armed = dict(e_mbr=torch.from_numpy(prep[0]).to(dev),
-                     q_mbr=torch.from_numpy(prep[1]).to(dev),
-                     d_prune=prep[2])
+        check(live is not None, "check tiles leave nothing to prune")
+        armed = host_armed(e_np, q_np, d, cb, qb, dev)
+        prep_equal(e_np, q_np, e, qt, d, f"tile prep {cb}x{qb}", cb, qb)
         lists = [torch.from_numpy(x).to(dev) for x in live[:3]]
         kw = dict(cand_blk=cb, qry_blk=qb)
         for append, suffix in (("chunk", ""), ("rowloop", "_rowloop")):
@@ -646,14 +704,14 @@ def block_checks(dev, rng, err, append: str) -> int:
         blocks = -(-c // cb) * per_tile
         hits = int(plain(e, qt, d, capacity=1)[4])
         check(hits >= 2, f"{c}x{q}: {hits} hits")
-        prep = ops._host_tile_prune(e_np, q_np, d, cb, cb)
-        check(prep is not None or not need_dead, f"{c}x{q}: no dead tile")
-        arms = [{}]
-        if prep is not None:
-            arms.append(dict(e_mbr=torch.from_numpy(prep[0]).to(dev),
-                             q_mbr=torch.from_numpy(prep[1]).to(dev),
-                             d_prune=prep[2]))
         live = ops._host_live_tiles(e_np, q_np, d, cb, cb)
+        check(live is not None or not need_dead, f"{c}x{q}: no dead tile")
+        arms = [{}]
+        if live is not None:
+            # Armed with the device-built operands (a 0-dim d_prune).
+            arms.append(dict(zip(("e_mbr", "q_mbr", "d_prune"),
+                                 dt.distthresh_tile_prep(e, qt, d,
+                                                         device=dev))))
         for capacity in (hits + 64, hits // 2):
             for arm in arms:
                 label = (f"{name} {c}x{q} ({blocks} blocks) "
@@ -927,8 +985,23 @@ def reset_launches():
 
 
 def launches() -> dict:
+    """The distance and flash kernels' launch counters, without
+    ``PREP``'s (``check_prep`` holds those to the armed launches)."""
     from repro_torch.kernels import distthresh as dt
-    return dict(dt.LAUNCHES)
+    return {k: n for k, n in dt.LAUNCHES.items() if k != PREP}
+
+
+def check_prep(label: str, pol, counts: dict) -> int:
+    """The tile-prune preparation's launches since the counters were
+    reset: one per launch of the compact kernels (``counts``) on the
+    spatial fused routes, none on any other.  Returns them."""
+    from repro_torch.kernels import distthresh as dt
+    n = dt.LAUNCHES[PREP]
+    spatial = pol.pruning == "spatial" and pol.compaction != "dense"
+    want = sum(counts.values()) if spatial else 0
+    check(n == want, f"{label}: {n} {PREP} launches for {want} armed "
+          "launches")
+    return n
 
 
 def timed_query(db, backend, **kw):
@@ -989,7 +1062,8 @@ def kernel_path(db, label: str, require: set, **kw):
               f"{label}: {launched} launches for {dispatched} dispatches")
     check(st.num_syncs <= 2 * st.num_groups,
           f"{label}: {st.num_syncs} syncs for {st.num_groups} groups")
-    return res, wall, counts
+    prep = check_prep(label, pol, counts)
+    return res, wall, {**counts, PREP: prep} if prep else counts
 
 
 def warm_up(db) -> None:
@@ -1494,27 +1568,104 @@ def property_case(i: int, dev) -> dict:
             "pruned_tiles": int(pruned), "retries": int(retries)}
 
 
-def no_slack_mismatches(i: int, dev) -> int:
-    """Case i (near-tangent) with the tile test's slack removed
-    (``ops._host_prune_threshold`` returning d): the pairs in which
-    ``spatial`` or ``hierarchical`` fused rows differ from ``none``'s
+def no_slack_mismatches(i: int, dev) -> dict:
+    """Case i (near-tangent) with the tile test's slack removed (the
+    threshold at d: ``ops._host_prune_threshold`` for the hierarchical
+    route, ``distthresh_tile_prep``'s ``d_prune`` for the spatial one):
+    per route, the pairs in which its fused rows differ from ``none``'s
     (single-query batches, so each query tile is one query's box)."""
     from repro_torch.api import ExecutionPolicy, TrajectoryDB
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import distthresh as dt
+    from repro_torch.kernels import ops, ref
     _, d, ent, qry, fields = property_inputs(i)
     db = TrajectoryDB.from_segments(
         segments_of(ent), device=dev, policy=ExecutionPolicy(
             **fields, batching="periodic", batch_params={"s": 1}))
     q = segments_of(qry)
     base = pair_keys(db.query(q, d, backend="kernel", pruning="none"))
-    orig = ops._host_prune_threshold
+    host, prep = ops._host_prune_threshold, dt.distthresh_tile_prep
+
+    def prep_no_slack(entries, queries_t, d, **kw):
+        e_mbr, q_mbr, _ = prep(entries, queries_t, d, **kw)
+        return e_mbr, q_mbr, ref._f32(np.float32(d), entries.device)
     ops._host_prune_threshold = lambda d, entries, queries: float(d)
+    dt.distthresh_tile_prep = prep_no_slack
     try:
-        return sum(len(base ^ pair_keys(db.query(
+        return {p: len(base ^ pair_keys(db.query(
             q, d, backend="kernel", pruning=p)))
-            for p in ("spatial", "hierarchical"))
+            for p in ("spatial", "hierarchical")}
     finally:
-        ops._host_prune_threshold = orig
+        ops._host_prune_threshold, dt.distthresh_tile_prep = host, prep
+
+
+def plan_slices(db, queries, pol, d):
+    """Each dispatched batch of ``pol``'s plan of ``queries`` as the
+    engine slices it: (host entries, host queries, resident entries, the
+    resident queries' column slice of one (8, N) upload)."""
+    from repro_torch.kernels import ops
+    qs = db._sorted(queries)[0].packed()
+    q_dev_t = ops.to_device(qs.T, db.device)
+    eng = db.engine("kernel", pol)
+    for b in db.plan(queries, pol, d=d).batches:
+        if b.num_candidates:
+            cf, cl = b.cand_first, b.cand_last + 1
+            qf, ql = b.q_first, b.q_last + 1
+            yield (eng._packed[cf:cl], qs[qf:ql], eng._packed_dev[cf:cl],
+                   q_dev_t[:, qf:ql])
+
+
+def first_trajectories(queries, n: int):
+    """The segments of ``queries``' first ``n`` trajectories."""
+    keep = np.isin(queries.traj_id, np.unique(queries.traj_id)[:n])
+    return queries.take(np.nonzero(keep)[0])
+
+
+def prep_path(dev, s1, card) -> dict:
+    """Phase prep: ``distthresh_tile_prep`` against the host helpers
+    (``prep_equal``) on every dispatched slice of S1 at scale 1.0 (its
+    first 10 query trajectories under the default policy, as
+    ``s1.search`` dispatches them, and all 100 at periodic s = 64), of S10
+    at scale 1.0 (10 query trajectories, default policy) and of the
+    near-tangent cases of phase properties (default policy), each at the
+    engine's float32 d and at the float64 d."""
+    from repro_torch.api import ExecutionPolicy, TrajectoryDB
+    t0 = time.perf_counter()
+    s10 = TrajectoryDB.from_scenario("S10", scale=1.0, device=dev)
+    sets = [("S1 default, 10 trajectories", s1,
+             first_trajectories(s1.scenario_queries, 10), s1.policy,
+             s1.scenario_d),
+            ("S1 periodic s=64", s1, s1.scenario_queries,
+             s1.policy.with_(batching="periodic", batch_params={"s": 64}),
+             s1.scenario_d),
+            ("S10 default, 10 trajectories", s10,
+             first_trajectories(s10.scenario_queries, 10), s10.policy,
+             s10.scenario_d)]
+    for i in range(PROP_CASES):
+        if PROP_FAMILIES[i % len(PROP_FAMILIES)] == "near_tangent":
+            _, d, ent, qry, fields = property_inputs(i)
+            db = TrajectoryDB.from_segments(segments_of(ent), device=dev,
+                                            policy=ExecutionPolicy(**fields))
+            sets.append((f"near-tangent case {i}", db, segments_of(qry),
+                         db.policy, d))
+    summary = {}
+    for label, db, queries, pol, d in sets:
+        n = zeros = widest = 0
+        for e_np, q_np, e, qt in plan_slices(db, queries, pol, d):
+            for dd in (np.float32(d), float(d)):
+                zeros += prep_equal(e_np, q_np, e, qt, dd, f"prep {label}")
+            n += 1
+            widest = max(widest, len(e_np))
+        check(n > 0, f"prep {label}: no dispatched slice")
+        summary[label] = {"slices": n, "widest_entries": widest,
+                          "box_zero_signs": zeros}
+    line = {"phase": "prep", "sets": len(summary),
+            "slices": sum(v["slices"] for v in summary.values()),
+            "box_zero_signs": sum(v["box_zero_signs"]
+                                  for v in summary.values()),
+            "by_set": summary, "seconds": time.perf_counter() - t0,
+            "card": card}
+    emit(line)
+    return line
 
 
 def properties_path(dev, card, cases=range(PROP_CASES)) -> dict:
@@ -1539,15 +1690,17 @@ def properties_path(dev, card, cases=range(PROP_CASES)) -> dict:
     pruned = sum(r["pruned_tiles"] for r in out)
     check(pruned > 0, "properties: no tile was pruned in the sweep")
     for k in REPLACES:
-        if k.startswith("distthresh"):
+        if k.startswith("distthresh") and k != PREP:
             check(counts.get(k, 0) > 0, f"properties: {k} never launched")
     tangent = [i for i in cases
                if PROP_FAMILIES[i % len(PROP_FAMILIES)] == "near_tangent"]
     t1 = time.perf_counter()
     negative = {i: no_slack_mismatches(i, dev)
                 for i in tangent[:PROP_NEGATIVE_CASES]}
-    check(sum(negative.values()) > 0,
-          "properties: the negative control (no slack) never changed a row")
+    for route in ("spatial", "hierarchical"):
+        check(sum(n[route] for n in negative.values()) > 0,
+              f"properties: the negative control (no slack) never changed "
+              f"a {route} row")
     line = {"phase": "properties", "cases": len(out),
             "pairs": sum(r["pairs"] for r in out),
             "hits": sum(r["hits"] for r in out),
@@ -2138,6 +2291,7 @@ def check_shard_run(label: str, require: set, pol, eng, res, counts):
     else:       # a pod whose tiles are all dead launches nothing
         check(0 < launched <= expected,
               f"{label}: {launched} launches for {expected} pod dispatches")
+    check_prep(label, pol, counts)
     check(st.num_syncs <= 2 * st.num_groups,
           f"{label}: {st.num_syncs} syncs for {st.num_groups} groups")
     pairs = set(zip(res.entry_idx.tolist(), res.query_idx.tolist()))
@@ -3989,15 +4143,19 @@ def kernel_timing(dev, s1, c3, counts, card):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
 
-    # distthresh_compact and its row-loop twin, on the main path's largest
-    # dispatch.
-    prep = ops._host_tile_prune(e_np, q_np, d, 256, 256)
-    arm = {} if prep is None else dict(
-        e_mbr=torch.from_numpy(prep[0]).to(dev),
-        q_mbr=torch.from_numpy(prep[1]).to(dev), d_prune=prep[2])
-    tiles = None
-    if prep is not None:
-        tiles = dt._tile_mbr_live(arm["e_mbr"], arm["q_mbr"], prep[2])
+    # The tile-prune preparation, then distthresh_compact and its
+    # row-loop twin armed with its operands, as the main path runs them,
+    # on the main path's largest dispatch.
+    zeros = prep_equal(e_np, q_np, e, qt, d, "timing tile prep")
+    arm = dict(zip(("e_mbr", "q_mbr", "d_prune"),
+                   dt.distthresh_tile_prep(e, qt, d, device=dev)))
+    table.append(row(
+        PREP, [c, q], 0.0,
+        graph_ms(lambda: dt.distthresh_tile_prep(e, qt, d, device=dev)),
+        event_ms(lambda: dt.distthresh_tile_prep_plain(e, qt, d)),
+        costs.distthresh_tile_prep_cost(c, q, 256, 256),
+        box_zero_signs=zeros, grid_blocks=-(-c // 256) + -(-q // 256)))
+    tiles = dt._tile_mbr_live(arm["e_mbr"], arm["q_mbr"], arm["d_prune"])
     pairs, overlap = pair_work(e, qt, tiles)
     for append, name in (("chunk", "distthresh_compact"),
                          ("rowloop", "distthresh_compact_rowloop")):
@@ -4014,7 +4172,7 @@ def kernel_timing(dev, s1, c3, counts, card):
                 e, qt, d, capacity=cap, append=append, device=dev, **arm)),
             event_ms(lambda: plain_fn(e, qt, d, capacity=cap, **arm)),
             costs.distthresh_cost(c, q, pairs, overlap, hits, "compact"),
-            armed=bool(arm),
+            armed=True, dead_tiles=int((~tiles).sum()),
             grid_blocks=-(-c // 256) * -(-q // 256) * blocks_per_tile(
                 c, q, append)))
 
@@ -4303,6 +4461,17 @@ def main() -> int:
         i = int(sys.argv[2])
         emit({"property_case": i, **property_case(i, dev), "card": card})
         return 0
+    if sys.argv[1:] == ["--prep"]:
+        # The distance kernels' checks and phase prep alone.
+        from repro_torch.api import TrajectoryDB
+        t0 = time.perf_counter()
+        checks = kernel_checks(dev)
+        emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
+              "rtol": K_RTOL, "atol": K_ATOL, **checks})
+        prep_path(dev, TrajectoryDB.from_scenario("S1", scale=1.0,
+                                                  device=dev), card)
+        emit({"ok": True, "phases": ["kernels", "prep"]})
+        return 0
 
     lint_path(card)
 
@@ -4318,6 +4487,7 @@ def main() -> int:
 
     (s1, main_res, main_wall, main_counts, dense_res,
      dense_counts) = main_path(dev, card)
+    prep_path(dev, s1, card)
     profile_main(s1, main_res, card)
     profile_main(s1, dense_res, card, "dense")
     shard_res, shard_pol, shard_counts = shard_path(s1, main_res, main_wall,
@@ -4350,6 +4520,8 @@ def main() -> int:
     counts = {
         "distthresh_compact": ("S1 scale 1.0, default policy (main path)",
                                main_counts["distthresh_compact"]),
+        PREP: ("S1 scale 1.0, default policy (main path)",
+               main_counts[PREP]),
         "distthresh_dense": ("S1 scale 1.0, compaction='dense'",
                              dense_counts["distthresh_dense"]),
         "distthresh_compact_live": (

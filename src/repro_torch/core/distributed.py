@@ -342,9 +342,10 @@ def pod_query_step(entries: np.ndarray, offsets: np.ndarray,
     ``offsets`` (P,) its first global (plan-order) segment index, ``lens``
     (P,) its real candidate rows, ``queries`` (Q, 8) the replicated padded
     query batch — all host numpy, the blocks the reference's ``shard_map``
-    body sees, so the host-side tile-prune preparation in
-    ``ops.query_block`` sees the pad rows as the reference's in-graph one
-    does.  Pod ``p`` runs ``ops.query_block`` on ``devices[p]``.
+    body sees, so the tile-prune preparation in ``ops.query_block`` (on
+    the device for spatial pruning, on the host for hierarchical) sees the
+    pad rows as the reference's in-graph one does.  Pod ``p`` runs
+    ``ops.query_block`` on ``devices[p]``.
 
     ``resident`` caches the uploads (``{"entries": {p: tensor},
     "queries_t": {device: tensor}}``), so an overflow retry at a larger

@@ -32,10 +32,12 @@ span                          host work
                               their pricing calls
 ``plan.subranges``            ``QueryPlanner._prune_batches``
 ``plan.refine``               capacities and dispatch groups
-``dispatch.prep``             ``ops._host_tile_prune`` /
+``dispatch.prep``             the enqueue of the spatial route's
+                              ``distthresh_tile_prep`` (tile boxes and
+                              threshold on the device) /
                               ``ops._host_live_tiles``
-``dispatch.upload``           ``ops.to_device`` of tile MBRs, live-tile
-                              lists, or inputs not resident
+``dispatch.upload``           ``ops.to_device`` of live-tile lists, or
+                              inputs not resident
 ``dispatch.launch``           the kernel wrapper call: checks, output
                               allocation, launch (on the dense path every
                               launch of the compaction)

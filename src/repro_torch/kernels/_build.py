@@ -32,7 +32,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _L, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float, ctypes.c_double)
 
 #: C signatures of the exported functions, all returning int: the launch
 #: functions their cudaError_t, the geometry functions their grid's blocks
@@ -41,10 +42,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "distthresh_dense_launch": (_P, _I, _P, _L, _I, _F, _P, _P, _P, _P),
     "distthresh_compact_launch": (_P, _I, _P, _L, _I, _F, _I, _I, _I, _I, _I,
-                                  _P, _P, _F, _P, _P, _P, _P, _P, _P, _P),
+                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     "distthresh_compact_live_launch": (_P, _I, _P, _L, _I, _F, _I, _I, _I,
                                        _I, _I, _P, _P, _P, _I, _P, _P, _P,
                                        _P, _P, _P),
+    "distthresh_tile_prep_launch": (_P, _I, _P, _L, _I, _I, _I, _D, _P, _P,
+                                    _P, _P, _P),
 }
 # The row-loop kernels take their chunk twins' arguments.
 SIGNATURES["distthresh_compact_rowloop_launch"] = SIGNATURES[

@@ -13,9 +13,9 @@ import torch
 
 LAUNCHES = {"distthresh_dense": 0, "distthresh_compact": 0,
             "distthresh_compact_live": 0, "distthresh_compact_rowloop": 0,
-            "distthresh_compact_live_rowloop": 0, "flashattn": 0,
-            "flashattn_bwd_delta": 0, "flashattn_bwd_dkdv": 0,
-            "flashattn_bwd_dq": 0}
+            "distthresh_compact_live_rowloop": 0, "distthresh_tile_prep": 0,
+            "flashattn": 0, "flashattn_bwd_delta": 0,
+            "flashattn_bwd_dkdv": 0, "flashattn_bwd_dq": 0}
 #: Serializes the increments: the scheduler and the broker dispatch from
 #: several threads.
 _lock = threading.Lock()

@@ -107,6 +107,28 @@
 //   32 bytes a warp; 16-byte vector stores of 4 pairs a thread gained
 //   nothing on the H100).
 //
+// distthresh_tile_prep_kernel + distthresh_tile_prep_limit_kernel  replace
+//   no pallas_call: they are the device side of the spatial early-out's
+//   operands, which the reference builds in jnp (_jit_tile_mbrs and
+//   _jit_prune_threshold, repro/kernels/ops.py:194-221) and the port built
+//   on the host in numpy on every dispatch.  The first kernel runs one
+//   256-thread block per entry tile and per query tile (grid: entry tiles
+//   + query tiles) over the resident slices: each thread folds its rows'
+//   endpoint boxes (float32 min/max, exact) and its rows' solve magnitudes
+//   (solve_scale's per-row term in float64), the block reduces them with
+//   warp shuffles, and thread 0 writes the tile's (lo_xyz, hi_xyz, 0, 0)
+//   row and the tile's largest magnitude.  The second, one block, takes
+//   the largest of those, floors it at 1 and evaluates prune_limit there in
+//   float64, then rounds once to float32: the threshold the armed compact
+//   kernels read from device memory.  Every float64 operation is an
+//   explicitly rounded intrinsic in numpy's order, so d_prune equals
+//   np.float32(prune_limit(d, max(solve_scale(entries),
+//   solve_scale(queries)))) bit for bit.  No host read, no synchronize.
+//   Bound: the bytes of the two slices read once (32 per row).
+//   Left on the table: the query slice is read column by column at the
+//   batch's row stride; the second launch (one block) exists only to take
+//   the maximum across blocks.
+//
 // Every launch function returns cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
@@ -466,17 +488,18 @@ __device__ __forceinline__ bool tile_mbr_live(const float* em, const float* qm,
 }
 
 // The armed early-out of logical tile (ti, tj) for one of its blocks:
-// every block of the tile takes the same decision on the same boxes, and
-// only the tile's first block (blockIdx.y == 0) counts a dead tile, so
-// `pruned` counts logical tiles.  Every thread of the block must call it.
+// every block of the tile takes the same decision on the same boxes and
+// the same threshold (read from device memory), and only the tile's first
+// block (blockIdx.y == 0) counts a dead tile, so `pruned` counts logical
+// tiles.  Every thread of the block must call it.
 __device__ __forceinline__ bool tile_live(int ti, int tj,
                                           const float* __restrict__ e_mbr,
                                           const float* __restrict__ q_mbr,
-                                          float d_prune,
+                                          const float* __restrict__ d_prune,
                                           int* __restrict__ pruned) {
   __shared__ int s_live;
   if (threadIdx.x == 0) {
-    s_live = tile_mbr_live(e_mbr + 8 * ti, q_mbr + 8 * tj, d_prune);
+    s_live = tile_mbr_live(e_mbr + 8 * ti, q_mbr + 8 * tj, *d_prune);
     if (!s_live && blockIdx.y == 0) atomicAdd(pruned, 1);
   }
   __syncthreads();
@@ -489,9 +512,10 @@ __global__ void __launch_bounds__(kSubThreads) distthresh_compact_kernel(
     long long ldq, int Q, float d, int cand_blk, int qry_blk, int valid_c,
     int valid_q, int capacity, int ntq, int sub_rows, int ld,
     const float* __restrict__ e_mbr, const float* __restrict__ q_mbr,
-    float d_prune, int* __restrict__ e_idx, int* __restrict__ q_idx,
-    float* __restrict__ t_enter, float* __restrict__ t_exit,
-    int* __restrict__ count, int* __restrict__ pruned) {
+    const float* __restrict__ d_prune, int* __restrict__ e_idx,
+    int* __restrict__ q_idx, float* __restrict__ t_enter,
+    float* __restrict__ t_exit, int* __restrict__ count,
+    int* __restrict__ pruned) {
   const int ti = blockIdx.x / ntq;
   const int tj = blockIdx.x % ntq;
   if (kPrune && !tile_live(ti, tj, e_mbr, q_mbr, d_prune, pruned)) return;
@@ -523,7 +547,7 @@ __global__ void __launch_bounds__(kSubThreads)
         long long ldq, int Q, float d, int cand_blk, int qry_blk,
         int valid_c, int valid_q, int capacity, int ntq, int per_warp,
         int ld, const float* __restrict__ e_mbr,
-        const float* __restrict__ q_mbr, float d_prune,
+        const float* __restrict__ q_mbr, const float* __restrict__ d_prune,
         int* __restrict__ e_idx, int* __restrict__ q_idx,
         float* __restrict__ t_enter, float* __restrict__ t_exit,
         int* __restrict__ count, int* __restrict__ pruned) {
@@ -599,6 +623,124 @@ __global__ void __launch_bounds__(kSubThreads) distthresh_dense_kernel(
       hit[o] = h ? 1 : 0;
     }
   }
+}
+
+// Blocks of the tile-prune preparation.
+constexpr int kPrepThreads = 256;
+
+// solve_scale's term of one packed segment (repro_torch/core/index.py), in
+// float64 with numpy's operations in numpy's order, each rounded once: per
+// axis max(|p0|, |p1|) + |v|·|ts|, v = (p1 − p0) / (te − ts), or 0 where
+// te − ts <= 0; the largest over the three axes.  All terms are >= 0.
+__device__ __forceinline__ double solve_mag(const float* p) {
+  const double ts = p[6];
+  const double dt = __dsub_rn((double)p[7], ts);
+  double m = 0.0;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const double a = p[ax], b = p[3 + ax];
+    const double v = dt > 0.0 ? __ddiv_rn(__dsub_rn(b, a), dt) : 0.0;
+    m = fmax(m, __dadd_rn(fmax(fabs(a), fabs(b)), __dmul_rn(fabs(v),
+                                                             fabs(ts))));
+  }
+  return m;
+}
+
+// One block per tile: blocks [0, ntc) the entry tiles of `entries` (rows
+// of 8 floats), blocks [ntc, ntc + ntq) the query tiles of `qT` (8 rows
+// `ldq` apart).  Writes the tile's (lo_xyz, hi_xyz, 0, 0) box, the
+// _host_tile_mbrs layout, and the largest solve magnitude of its rows to
+// tile_mag[blockIdx.x].
+__global__ void __launch_bounds__(kPrepThreads) distthresh_tile_prep_kernel(
+    const float* __restrict__ entries, int C, const float* __restrict__ qT,
+    long long ldq, int Q, int cand_blk, int qry_blk, int ntc,
+    float* __restrict__ e_mbr, float* __restrict__ q_mbr,
+    double* __restrict__ tile_mag) {
+  const bool entry = blockIdx.x < ntc;
+  const int tile = entry ? blockIdx.x : blockIdx.x - ntc;
+  const int blk = entry ? cand_blk : qry_blk;
+  const int r0 = tile * blk;
+  const int r1 = min(entry ? C : Q, r0 + blk);
+  float box[6] = {f_inf(), f_inf(), f_inf(), -f_inf(), -f_inf(), -f_inf()};
+  double mag = 0.0;
+  for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
+    float p[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      p[k] = entry ? entries[(size_t)r * 8 + k] : qT[k * ldq + r];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      box[ax] = fminf(box[ax], fminf(p[ax], p[3 + ax]));
+      box[3 + ax] = fmaxf(box[3 + ax], fmaxf(p[ax], p[3 + ax]));
+    }
+    mag = fmax(mag, solve_mag(p));
+  }
+  // Warp reduction, then the warps' partials through shared memory.
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      box[ax] = fminf(box[ax], __shfl_down_sync(0xffffffffu, box[ax], o));
+      box[3 + ax] = fmaxf(box[3 + ax],
+                          __shfl_down_sync(0xffffffffu, box[3 + ax], o));
+    }
+    mag = fmax(mag, __shfl_down_sync(0xffffffffu, mag, o));
+  }
+  __shared__ float s_box[kPrepThreads / 32][6];
+  __shared__ double s_mag[kPrepThreads / 32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) s_box[wid][k] = box[k];
+    s_mag[wid] = mag;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      box[ax] = fminf(box[ax], s_box[w][ax]);
+      box[3 + ax] = fmaxf(box[3 + ax], s_box[w][3 + ax]);
+    }
+    mag = fmax(mag, s_mag[w]);
+  }
+  float* out = (entry ? e_mbr : q_mbr) + 8 * (size_t)tile;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) out[k] = box[k];
+  out[6] = 0.0f;
+  out[7] = 0.0f;
+  tile_mag[blockIdx.x] = mag;
+}
+
+// One block: the largest of the n tile magnitudes, floored at 1 (the
+// dispatch's solve_scale), and prune_limit(d, scale) in float64, operation
+// by operation as repro_torch/core/index.py evaluates it, rounded once to
+// float32.
+__global__ void __launch_bounds__(kPrepThreads)
+    distthresh_tile_prep_limit_kernel(const double* __restrict__ tile_mag,
+                                      int n, double d,
+                                      float* __restrict__ d_prune) {
+  double m = 0.0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) m = fmax(m, tile_mag[i]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmax(m, __shfl_down_sync(0xffffffffu, m, o));
+  __shared__ double s_m[kPrepThreads / 32];
+  if ((threadIdx.x & 31) == 0) s_m[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmax(m, s_m[w]);
+  // scale = max(mag, 1.0); err = 4e-6 * scale * scale;
+  // slack = min(err / max(2 d, 1e-12), sqrt(err));
+  // d + 1e-5 d + slack + 1e-9, left to right.
+  const double scale = 1.0 > m ? 1.0 : m;
+  const double err = __dmul_rn(__dmul_rn(4e-6, scale), scale);
+  const double two_d = __dmul_rn(2.0, d);
+  const double by_d = __ddiv_rn(err, 1e-12 > two_d ? 1e-12 : two_d);
+  const double root = __dsqrt_rn(err);
+  const double slack = root < by_d ? root : by_d;
+  *d_prune = __double2float_rn(__dadd_rn(
+      __dadd_rn(__dadd_rn(d, __dmul_rn(1e-5, d)), slack), 1e-9));
 }
 
 // The most columns a tile of the batch can have: the stride of the
@@ -694,13 +836,38 @@ int distthresh_compact_rowloop_blocks(int C, int Q, int cand_blk,
   return RowBlocks(C, Q, cand_blk, qry_blk, valid_c, valid_q).per_tile;
 }
 
+// The spatial early-out's operands for one dispatch, on `stream`: the
+// per-tile boxes into e_mbr (ceil(C / cand_blk), 8) and q_mbr
+// (ceil(Q / qry_blk), 8), their magnitudes into the scratch tile_mag (one
+// double per tile), then the float32 threshold into *d_prune.
+int distthresh_tile_prep_launch(const float* entries, int C, const float* qT,
+                                long long ldq, int Q, int cand_blk,
+                                int qry_blk, double d, float* e_mbr,
+                                float* q_mbr, double* tile_mag,
+                                float* d_prune, void* stream) {
+  const int ntc = (C + cand_blk - 1) / cand_blk;
+  const int ntq = (Q + qry_blk - 1) / qry_blk;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ntc + ntq > 0) {
+    distthresh_tile_prep_kernel<<<ntc + ntq, kPrepThreads, 0, s>>>(
+        entries, C, qT, ldq, Q, cand_blk, qry_blk, ntc, e_mbr, q_mbr,
+        tile_mag);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  distthresh_tile_prep_limit_kernel<<<1, kPrepThreads, 0, s>>>(
+      tile_mag, ntc + ntq, d, d_prune);
+  return (int)cudaGetLastError();
+}
+
 int distthresh_compact_launch(const float* entries, int C, const float* qT,
                               long long ldq, int Q, float d, int cand_blk,
                               int qry_blk, int valid_c, int valid_q,
                               int capacity, const float* e_mbr,
-                              const float* q_mbr, float d_prune, int* e_idx,
-                              int* q_idx, float* t_enter, float* t_exit,
-                              int* count, int* pruned, void* stream) {
+                              const float* q_mbr, const float* d_prune,
+                              int* e_idx, int* q_idx, float* t_enter,
+                              float* t_exit, int* count, int* pruned,
+                              void* stream) {
   const int ntc = (C + cand_blk - 1) / cand_blk;
   const int ntq = (Q + qry_blk - 1) / qry_blk;
   const SubTiles sub(C, Q, cand_blk, qry_blk, valid_c, valid_q);
@@ -714,8 +881,8 @@ int distthresh_compact_launch(const float* entries, int C, const float* qT,
   } else {
     distthresh_compact_kernel<false><<<grid, kSubThreads, sub.smem(), s>>>(
         entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
-        capacity, ntq, sub.rows, sub.ld, nullptr, nullptr, 0.0f, e_idx, q_idx,
-        t_enter, t_exit, count, pruned);
+        capacity, ntq, sub.rows, sub.ld, nullptr, nullptr, nullptr, e_idx,
+        q_idx, t_enter, t_exit, count, pruned);
   }
   return (int)cudaGetLastError();
 }
@@ -741,9 +908,9 @@ int distthresh_compact_live_launch(const float* entries, int C,
 int distthresh_compact_rowloop_launch(
     const float* entries, int C, const float* qT, long long ldq, int Q,
     float d, int cand_blk, int qry_blk, int valid_c, int valid_q,
-    int capacity, const float* e_mbr, const float* q_mbr, float d_prune,
-    int* e_idx, int* q_idx, float* t_enter, float* t_exit, int* count,
-    int* pruned, void* stream) {
+    int capacity, const float* e_mbr, const float* q_mbr,
+    const float* d_prune, int* e_idx, int* q_idx, float* t_enter,
+    float* t_exit, int* count, int* pruned, void* stream) {
   const int ntc = (C + cand_blk - 1) / cand_blk;
   const int ntq = (Q + qry_blk - 1) / qry_blk;
   const RowBlocks rb(C, Q, cand_blk, qry_blk, valid_c, valid_q);
@@ -759,7 +926,7 @@ int distthresh_compact_rowloop_launch(
     distthresh_compact_rowloop_kernel<false><<<grid, kSubThreads, rb.smem(),
                                                s>>>(
         entries, C, qT, ldq, Q, d, cand_blk, qry_blk, valid_c, valid_q,
-        capacity, ntq, rb.per_warp, rb.ld, nullptr, nullptr, 0.0f, e_idx,
+        capacity, ntq, rb.per_warp, rb.ld, nullptr, nullptr, nullptr, e_idx,
         q_idx, t_enter, t_exit, count, pruned);
   }
   return (int)cudaGetLastError();

@@ -9,7 +9,11 @@ reference's Pallas TPU kernels in ``repro/kernels/distthresh.py``:
 * :func:`distthresh_compact_live` replaces
   ``distthresh_compact_live_pallas``: ``distthresh_compact_live`` and
   ``distthresh_compact_live_rowloop``;
-* :func:`distthresh_dense` replaces ``distthresh_pallas``.
+* :func:`distthresh_dense` replaces ``distthresh_pallas``;
+* :func:`distthresh_tile_prep` replaces no Pallas kernel: it builds the
+  armed compact kernels' operands (tile boxes and the prune threshold) on
+  the device, where the reference builds them in jnp
+  (``_jit_tile_mbrs``, ``_jit_prune_threshold``).
 
 Each wrapper keeps its counterpart's signature and return tuple, plus
 ``device=`` (default ``"cuda"``, resolved as every entry point resolves
@@ -197,9 +201,11 @@ def distthresh_compact(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
       valid_c / valid_q: rows/columns at or past them are masked out.
       e_mbr / q_mbr / d_prune: the tile-level early-out, all three or
         none.  ``e_mbr`` is (ceil(C/cand_blk), 8) per entry tile
-        ``(lo_xyz, hi_xyz, 0, 0)``, ``q_mbr`` the same per query tile; a
-        tile whose boxes lie farther apart than ``d_prune`` is skipped and
-        counted in ``pruned``.
+        ``(lo_xyz, hi_xyz, 0, 0)``, ``q_mbr`` the same per query tile
+        (:func:`distthresh_tile_prep` builds all three); ``d_prune`` a
+        0-dim float32 tensor, which the kernels read from device memory,
+        or a number.  A tile whose boxes lie farther apart than
+        ``d_prune`` is skipped and counted in ``pruned``.
       append: ``"chunk"`` (threads over a sub-tile's pairs, one atomic
         per sub-tile) or ``"rowloop"`` (one warp per entry row, one atomic per
         row block); each pair solved once, the same rows, the same
@@ -239,12 +245,12 @@ def distthresh_compact(entries: torch.Tensor, queries_t: torch.Tensor, d, *,
         outs = _compact_outputs(capacity, dev)
         if ntc and ntq and target == "cuda":
             from repro_torch.kernels import _build
+            dp = ref._f32(d_prune, dev) if prune else None
             err = getattr(_build.load(), name + "_launch")(
                 _ptr(entries), c, _ptr(queries_t), ldq, q,
                 float(np.float32(d)),
                 cand_blk, qry_blk, valid_c, valid_q, capacity,
-                _ptr(e_mbr), _ptr(q_mbr),
-                float(np.float32(d_prune)) if prune else 0.0,
+                _ptr(e_mbr), _ptr(q_mbr), _ptr(dp),
                 *(_ptr(t) for t in outs), _stream(dev))
             _raise_on(err, name)
             _count_launch(name)
@@ -325,6 +331,58 @@ def distthresh_compact_live(entries: torch.Tensor, queries_t: torch.Tensor,
         return outs
 
 
+def distthresh_tile_prep(entries: torch.Tensor, queries_t: torch.Tensor,
+                         d, *, cand_blk: int = DEFAULT_CAND_BLK,
+                         qry_blk: int = DEFAULT_QRY_BLK, device="cuda"):
+    """The tile-level early-out's operands of one dispatch, built where
+    its slices lie: ``(e_mbr, q_mbr, d_prune)`` for
+    :func:`distthresh_compact`.
+
+    Args:
+      entries: (C, 8) float32, contiguous.
+      queries_t: (8, Q) float32, rows of unit stride.
+      d: the dispatch's threshold (read as a Python float, as
+        ``core.index.prune_limit`` reads it).
+      cand_blk / qry_blk: the tiles of the compact kernel that reads them.
+
+    Returns ``e_mbr`` (ceil(C/cand_blk), 8) and ``q_mbr``
+    (ceil(Q/qry_blk), 8) float32, each tile's ``(lo_xyz, hi_xyz, 0, 0)``
+    over its segments' endpoints (the last tile ragged), and ``d_prune``,
+    a 0-dim float32 tensor equal bit for bit to ``np.float32(prune_limit(
+    float(d), max(solve_scale(entries), solve_scale(queries))))``.  On
+    CUDA two launches in order on the current stream, one count of
+    ``LAUNCHES["distthresh_tile_prep"]``, no host read; the float64
+    scratch they share is freed on return (the caching allocator reuses it
+    only after them on the stream).
+    """
+    c, q = _check_inputs(entries, queries_t, cand_blk, qry_blk)
+    target = _kernel_target(entries, device)
+    with declare("distthresh_tile_prep",
+                 lambda: costs.distthresh_tile_prep_cost(c, q, cand_blk,
+                                                         qry_blk)):
+        if target == "cpu":
+            return distthresh_tile_prep_plain(entries, queries_t, d,
+                                              cand_blk=cand_blk,
+                                              qry_blk=qry_blk)
+        ldq = _layout(entries, queries_t)
+        dev = entries.device
+        ntc, ntq = -(-c // cand_blk), -(-q // qry_blk)
+        mbr = torch.empty((ntc + ntq, 8), dtype=torch.float32, device=dev)
+        e_mbr, q_mbr = mbr[:ntc], mbr[ntc:]
+        d_prune = torch.empty((), dtype=torch.float32, device=dev)
+        if target == "cuda":
+            from repro_torch.kernels import _build
+            tile_mag = torch.empty((ntc + ntq,), dtype=torch.float64,
+                                   device=dev)
+            err = _build.load().distthresh_tile_prep_launch(
+                _ptr(entries), c, _ptr(queries_t), ldq, q, cand_blk,
+                qry_blk, float(d), _ptr(e_mbr), _ptr(q_mbr), _ptr(tile_mag),
+                _ptr(d_prune), _stream(dev))
+            _raise_on(err, "distthresh_tile_prep")
+            _count_launch("distthresh_tile_prep")
+        return e_mbr, q_mbr, d_prune
+
+
 # ----------------------------------------------------------------------
 # Plain versions of the fused kernels.
 # ----------------------------------------------------------------------
@@ -340,6 +398,52 @@ def _tile_mbr_live(e_mbr: torch.Tensor, q_mbr: torch.Tensor, d_prune):
         gap2 = gap2 + g * g
     dp = ref._f32(d_prune, e_mbr.device)
     return gap2 <= dp * dp
+
+
+def _tile_boxes(rows: torch.Tensor, blk: int):
+    """Per-tile boxes ``(ceil(n/blk), 8)`` float32 ``(lo_xyz, hi_xyz, 0,
+    0)`` of (n, 8) packed rows, and each row's ``solve_scale`` magnitude
+    (n × 3,) in float64, numpy's operations in numpy's order."""
+    n = rows.shape[0]
+    nt = -(-n // blk)
+    pad = torch.full((nt * blk - n, 3), float("inf"), dtype=rows.dtype,
+                     device=rows.device)
+    lo = torch.minimum(rows[:, 0:3], rows[:, 3:6])
+    hi = torch.maximum(rows[:, 0:3], rows[:, 3:6])
+    box = torch.zeros((nt, 8), dtype=torch.float32, device=rows.device)
+    box[:, 0:3] = torch.cat([lo, pad]).reshape(nt, blk, 3).amin(1)
+    box[:, 3:6] = torch.cat([hi, -pad]).reshape(nt, blk, 3).amax(1)
+    p = rows.double()
+    dt = p[:, 7] - p[:, 6]
+    live = dt > 0
+    v = (p[:, 3:6] - p[:, 0:3]) / torch.where(live, dt, 1.0)[:, None]
+    v = torch.where(live[:, None], v, 0.0)
+    mag = (torch.maximum(p[:, 0:3].abs(), p[:, 3:6].abs())
+           + v.abs() * p[:, 6:7].abs())
+    return box, mag.reshape(-1)
+
+
+def _prune_limit_plain(d, scale: torch.Tensor) -> torch.Tensor:
+    """``core.index.prune_limit(d, scale)`` on a 0-dim float64 ``scale``,
+    the same float64 operations in the same order, rounded once to a 0-dim
+    float32 tensor."""
+    d = float(d)
+    err = 4e-6 * scale * scale
+    slack = torch.minimum(err / max(2.0 * d, 1e-12), torch.sqrt(err))
+    return (d + 1e-5 * d + slack + 1e-9).to(torch.float32)
+
+
+def distthresh_tile_prep_plain(entries: torch.Tensor,
+                               queries_t: torch.Tensor, d, *,
+                               cand_blk: int = DEFAULT_CAND_BLK,
+                               qry_blk: int = DEFAULT_QRY_BLK):
+    """Plain PyTorch version of :func:`distthresh_tile_prep`: the
+    dispatch's ``solve_scale`` is the largest row magnitude, at least 1."""
+    e_mbr, e_mag = _tile_boxes(entries, cand_blk)
+    q_mbr, q_mag = _tile_boxes(queries_t.T, qry_blk)
+    one = torch.ones((1,), dtype=torch.float64, device=entries.device)
+    scale = torch.cat([one, e_mag, q_mag]).max()
+    return e_mbr, q_mbr, _prune_limit_plain(d, scale)
 
 
 def _append_in_order(entries, queries_t, d, hit, slot_of_tile, capacity,
@@ -451,5 +555,6 @@ __all__ = [
     "MAX_BLK", "distthresh_compact", "distthresh_compact_live",
     "distthresh_compact_live_plain", "distthresh_compact_live_rowloop_plain",
     "distthresh_compact_plain", "distthresh_compact_rowloop_plain",
-    "distthresh_dense", "distthresh_dense_plain",
+    "distthresh_dense", "distthresh_dense_plain", "distthresh_tile_prep",
+    "distthresh_tile_prep_plain",
 ]

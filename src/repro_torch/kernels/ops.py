@@ -30,11 +30,13 @@ tiles varies between runs); consumers sort canonically.  The kernels mask
 rows and columns past the batch themselves, so no pad rows are added.
 
 Entries and queries come in twice: as host numpy arrays, which the
-tile-prune preparation reads (:func:`_host_tile_prune`,
-:func:`_host_live_tiles`; no device work, so the dispatch stays
-asynchronous), and optionally as tensors already resident on the device
-(``entries_dev`` (C, 8), ``queries_t_dev`` (8, Q)).  Without the latter
-the host arrays are uploaded here.
+hierarchical route's live-tile list reads (:func:`_host_live_tiles`, on
+the host because it sizes the grid), and optionally as tensors already
+resident on the device (``entries_dev`` (C, 8), ``queries_t_dev`` (8,
+Q)).  Without the latter the host arrays are uploaded here.  The spatial
+route builds its tile boxes and threshold from the device tensors
+(:func:`~repro_torch.kernels.distthresh.distthresh_tile_prep`): no pass
+over the candidates on the host, no host read.
 """
 from __future__ import annotations
 
@@ -53,11 +55,12 @@ from repro_torch.kernels.distthresh import DEFAULT_CAND_BLK, DEFAULT_QRY_BLK
 COMPACTIONS = ("fused", "fused_rowloop", "dense")
 
 #: pruning strategies accepted by :func:`query_block`: ``"spatial"`` arms
-#: the fused kernel's tile-level MBR early-out; ``"hierarchical"`` runs the
-#: same box test on the host and dispatches only the live tiles through
-#: the live-tile kernel; ``"none"`` disables tile-level pruning.  The dense
-#: path has no tile loop to skip, so pruning is a no-op there.  No mode
-#: changes the result set (the box test uses the inflated ``prune_limit``).
+#: the fused kernel's tile-level MBR early-out, its operands built on the
+#: device; ``"hierarchical"`` runs the same box test on the host and
+#: dispatches only the live tiles through the live-tile kernel; ``"none"``
+#: disables tile-level pruning.  The dense path has no tile loop to skip,
+#: so pruning is a no-op there.  No mode changes the result set (the box
+#: test uses the inflated ``prune_limit``).
 PRUNINGS = ("spatial", "hierarchical", "none")
 
 
@@ -134,7 +137,8 @@ def _empty_block(capacity: int, device: torch.device,
 
 
 # ----------------------------------------------------------------------
-# Host-side tile-prune preparation (numpy; no device work).
+# Host-side tile-prune preparation of the hierarchical route (numpy; no
+# device work).
 # ----------------------------------------------------------------------
 def _host_tile_mbrs(packed: np.ndarray, blk: int) -> np.ndarray:
     """Per-tile spatial MBRs of packed segments, host-side (numpy).
@@ -203,26 +207,6 @@ def _host_live_tiles(entries: np.ndarray, queries: np.ndarray, d,
     return tile_i, tile_j, np.array([n_live], np.int32), int(live.size)
 
 
-def _host_tile_prune(entries: np.ndarray, queries: np.ndarray, d,
-                     cand_blk: int, qry_blk: int):
-    """Host-side tile-prune preparation for one dispatch.
-
-    Computes the per-tile entry/query MBRs and the inflated threshold,
-    evaluates the box test over every tile pair, and returns ``(e_mbr,
-    q_mbr, d_prune)`` only when at least one tile pair would be skipped —
-    otherwise ``None``, and the caller runs the unarmed kernel, which pays
-    no per-tile test.
-    """
-    e_mbr = _host_tile_mbrs(entries, cand_blk)
-    q_mbr = _host_tile_mbrs(queries, qry_blk)
-    d_prune = _host_prune_threshold(d, entries, queries)
-    gap2 = mbr_gap2(e_mbr[:, None, 0:3], e_mbr[:, None, 3:6],
-                    q_mbr[None, :, 0:3], q_mbr[None, :, 3:6])
-    if not np.any(gap2 > d_prune * d_prune):
-        return None
-    return e_mbr, q_mbr, np.float32(d_prune)
-
-
 # ----------------------------------------------------------------------
 # The per-batch computation.
 # ----------------------------------------------------------------------
@@ -262,8 +246,9 @@ def query_block(entries: np.ndarray, queries: np.ndarray, d, *,
       ``num_tiles``  int — tiles the dispatch comprised (both 0 on the
                      dense path)
 
-    ``pruning="spatial"`` arms the fused kernel's per-tile box test, but
-    only when the host test finds at least one skippable tile pair;
+    ``pruning="spatial"`` arms the fused kernel's per-tile box test on
+    every dispatch, its boxes and threshold built on the device by
+    :func:`~repro_torch.kernels.distthresh.distthresh_tile_prep`;
     ``pruning="hierarchical"`` dispatches the host-built live-tile list
     through the live-tile kernel (and no kernel at all when every tile is
     dead).  Neither changes the result set.  ``compaction="fused_rowloop"``
@@ -327,13 +312,13 @@ def _fused(entries, queries, e_dev, q_dev, d, *, capacity, cand_blk, qry_blk,
                           num_tiles - int(n_live[0]), num_tiles)
     prune_kw = {}
     if pruning == "spatial":
+        # The operands live until the launch is enqueued; the caching
+        # allocator then reuses their memory only after it on the stream.
         with span("dispatch.prep"):
-            prep = _host_tile_prune(entries, queries, d, cand_blk, qry_blk)
-        if prep is not None:
-            e_mbr, q_mbr, d_prune = prep
-            with span("dispatch.upload"):
-                prune_kw = dict(e_mbr=to_device(e_mbr, dev),
-                                q_mbr=to_device(q_mbr, dev), d_prune=d_prune)
+            e_mbr, q_mbr, d_prune = _dt.distthresh_tile_prep(
+                e_dev, q_dev, d, cand_blk=cand_blk, qry_blk=qry_blk,
+                device=dev)
+        prune_kw = dict(e_mbr=e_mbr, q_mbr=q_mbr, d_prune=d_prune)
     with span("dispatch.launch"):
         e_idx, q_idx, t_enter, t_exit, count, pruned = _dt.distthresh_compact(
             e_dev, q_dev, d, **kw, **prune_kw)

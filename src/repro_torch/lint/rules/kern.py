@@ -12,7 +12,8 @@ reads as the Pallas rule of the same number:
 
 * ``KERN101`` (error) — every name in ``SIGNATURES`` is an ``extern
   "C"`` function with the same parameter count and kinds (a pointer is
-  ``_P``, ``int`` ``_I``, ``long long`` ``_L``, ``float`` ``_F``), and
+  ``_P``, ``int`` ``_I``, ``long long`` ``_L``, ``float`` ``_F``,
+  ``double`` ``_D``), and
   every ``extern "C"`` ``*_launch`` has a ``SIGNATURES`` entry.  Prototypes are
   read with a small regex over the ``extern "C"`` blocks; a prototype
   that does not parse is skipped, never guessed.
@@ -41,9 +42,9 @@ from repro_torch.lint.rules import ERROR, Violation, rule
 
 #: ctypes type → the kind letter KERN101 compares
 _CTYPES_KINDS = {"c_void_p": "P", "c_int": "I", "c_longlong": "L",
-                 "c_float": "F"}
+                 "c_float": "F", "c_double": "D"}
 #: C scalar types (qualifiers dropped) → kind letter
-_C_KINDS = {"int": "I", "long long": "L", "float": "F"}
+_C_KINDS = {"int": "I", "long long": "L", "float": "F", "double": "D"}
 _C_QUALIFIERS = ("const", "volatile", "__restrict__", "restrict")
 
 
@@ -225,7 +226,8 @@ def _split_inputs(files, cfg):
     return build, csrc
 
 
-_KIND_NAMES = {"P": "pointer", "I": "int", "L": "long long", "F": "float"}
+_KIND_NAMES = {"P": "pointer", "I": "int", "L": "long long", "F": "float",
+               "D": "double"}
 
 
 def _fmt(kinds) -> str:

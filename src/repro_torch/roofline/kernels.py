@@ -20,7 +20,9 @@ operations are the ones the function needs, by dtype:
   ``kernels/csrc/distthresh.cu``; the per-segment terms made once per row
   or column are not counted).  The overlaps and hits depend on the data:
   a caller that knows them (the timing phase) passes them; a wrapper
-  charges what its shapes give (:func:`distthresh_shape_cost`).
+  charges what its shapes give (:func:`distthresh_shape_cost`);
+* the tile-prune preparation: its segments read once and its tile boxes
+  written (:func:`distthresh_tile_prep_cost`).
 """
 from __future__ import annotations
 
@@ -131,6 +133,17 @@ def distthresh_shape_cost(c: int, q: int, kind: str, *, valid_c: int,
                            else capacity, kind, slots)
 
 
+def distthresh_tile_prep_cost(c: int, q: int, cand_blk: int,
+                              qry_blk: int) -> KernelCost:
+    """``distthresh_tile_prep``: the ``c`` entry and ``q`` query segments
+    read once, one (lo, hi) box row of 8 float32 written per entry and per
+    query tile and the float32 threshold.  Its float64 work (a few
+    operations per segment and axis for ``solve_scale``) is not counted:
+    the bytes bound it."""
+    tiles = -(-c // cand_blk) + -(-q // qry_blk)
+    return KernelCost({}, float(SEGMENT_BYTES * (c + q + tiles) + 4))
+
+
 def bound_ms(flops_by_dtype: dict, nbytes: float, hw: dict = HW
              ) -> tuple[float, str]:
     """The least milliseconds for the work, and what sets it: the larger
@@ -144,4 +157,5 @@ def bound_ms(flops_by_dtype: dict, nbytes: float, hw: dict = HW
 
 __all__ = ["HIT_BYTES", "KernelCost", "OPS_PER_OVERLAP", "OPS_PER_PAIR",
            "SEGMENT_BYTES", "bound_ms", "causal_pairs", "distthresh_cost",
-           "distthresh_shape_cost", "flash_bwd_cost", "flash_fwd_cost"]
+           "distthresh_shape_cost", "distthresh_tile_prep_cost",
+           "flash_bwd_cost", "flash_fwd_cost"]

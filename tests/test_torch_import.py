@@ -165,6 +165,7 @@ def _entry_points():
             e, e.T, 1.0, torch.zeros(1, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32),
             torch.ones(1, dtype=torch.int32), capacity=8, append="rowloop"),
+        "distthresh_tile_prep": lambda: dt.distthresh_tile_prep(e, e.T, 1.0),
         "query_block_rowloop": lambda: ops.query_block(
             packed, packed, 1.0, capacity=8, compaction="fused_rowloop"),
         "benchmark_device_curves": lambda: perfmodel.benchmark_device_curves(

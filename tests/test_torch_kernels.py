@@ -219,11 +219,18 @@ def _clustered(blk: int):
     return e, qq, np.float32(4.0)
 
 
+def _armed(e, q, d, cand_blk: int, qry_blk: int):
+    """The early-out's operands from the host helpers: the tile boxes and
+    the threshold rounded to float32."""
+    return (ops._host_tile_mbrs(e, cand_blk), ops._host_tile_mbrs(q, qry_blk),
+            np.float32(ops._host_prune_threshold(d, e, q)))
+
+
 @pytest.mark.parametrize("append", APPENDS)
 @pytest.mark.parametrize("blk", [8, 16])
 def test_compact_plain_armed_equals_pallas(blk, append):
     e, q, d = _clustered(blk)
-    e_mbr, q_mbr, d_prune = ops._host_tile_prune(e, q, d, blk, blk)
+    e_mbr, q_mbr, d_prune = _armed(e, q, d, blk, blk)
     kw = dict(capacity=4096, cand_blk=blk, qry_blk=blk, append=append)
     got = dt.distthresh_compact(_t(e), _t(q.T), d, e_mbr=_t(e_mbr),
                                 q_mbr=_t(q_mbr), d_prune=d_prune, device=CPU,
@@ -252,7 +259,7 @@ def test_rowloop_plain_multiblock_equals_pallas(armed, capacity):
               valid_q=len(q), append="rowloop")
     arm, jarm = {}, {}
     if armed:
-        e_mbr, q_mbr, d_prune = ops._host_tile_prune(e, q, d, cb, qb)
+        e_mbr, q_mbr, d_prune = _armed(e, q, d, cb, qb)
         arm = dict(e_mbr=_t(e_mbr), q_mbr=_t(q_mbr), d_prune=d_prune)
         jarm = dict(e_mbr=e_mbr, q_mbr=q_mbr, d_prune=d_prune)
     got = dt.distthresh_compact(_t(e), _t(q_pad.T), d, device=CPU, **kw,
@@ -335,6 +342,88 @@ def test_query_block_equals_reference(compaction, pruning):
         np.testing.assert_array_equal(g[k], w[k])
     for k in (2, 3):
         np.testing.assert_allclose(g[k], w[k], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("compaction", ["fused", "fused_rowloop"])
+def test_spatial_dispatch_builds_no_host_operands(monkeypatch, compaction):
+    """The spatial route prepares its tile boxes and threshold from the
+    device tensors alone: with the host helpers and ``solve_scale`` made to
+    raise (their names in ``ops``; the planner keeps its own), it still
+    gives the reference's rows and ``pruned_tiles``."""
+    e, q, d = _clustered(16)
+
+    def no_host_pass(*a, **k):
+        raise AssertionError("a host pass over the dispatch's candidates")
+    for name in ("_host_tile_mbrs", "_host_prune_threshold", "solve_scale"):
+        monkeypatch.setattr(ops, name, no_host_pass)
+    kw = dict(capacity=1024, cand_blk=16, qry_blk=16, pruning="spatial")
+    got = ops.query_block(e, q, d, device=CPU, compaction=compaction, **kw)
+    want = jops.query_block(e, q, d, use_pallas=True, compaction="fused",
+                            **kw)
+    for key in ("count", "pruned_tiles", "num_tiles"):
+        assert int(got[key]) == int(want[key]), key
+    assert int(want["pruned_tiles"]) > 0
+    g, w = _canon(got), _canon(want)
+    for k in (0, 1):
+        np.testing.assert_array_equal(g[k], w[k])
+
+
+def _prep_case(name: str):
+    """(entries, queries, d, cand_blk, qry_blk) of a tile-prep case."""
+    if name == "clustered":
+        return (*_clustered(16), 16, 16)
+    if name == "ragged":                    # both last tiles shorter
+        return (*_random(11, 517, 37), 64, 16)
+    if name == "under_one_tile":            # C < cand_blk, Q < qry_blk
+        return (*_random(12, 40, 9), 256, 256)
+    if name == "single_row":
+        return (*_random(13, 1, 1), 8, 8)
+    # Rows with t_end == t_start whose endpoints differ: velocity 0 by
+    # solve_scale's rule, so only the coordinates count; d as a float64.
+    e, q, _ = _random(14, 70, 20)
+    e[::3, 7] = e[::3, 6]
+    e[::3, 3:6] = e[::3, 0:3] + 1e4
+    q[::4, 7] = q[::4, 6]
+    return e, q, 2.718281828459045, 16, 8
+
+
+@pytest.mark.parametrize("name", ["clustered", "ragged", "under_one_tile",
+                                  "single_row", "static_rows"])
+def test_tile_prep_plain_equals_host_helpers(name):
+    """The plain twin of ``distthresh_tile_prep`` gives the host helpers'
+    boxes and ``np.float32(_host_prune_threshold(...))`` bit for bit, with
+    the queries a column slice of a wider (8, N) array as the engine passes
+    them."""
+    e, q, d, cb, qb = _prep_case(name)
+    wide = np.concatenate([np.zeros((3, 8), np.float32), q,
+                           np.zeros((2, 8), np.float32)])
+    qt = _t(wide.T)[:, 3:3 + len(q)]
+    e_mbr, q_mbr, d_prune = dt.distthresh_tile_prep(
+        _t(e), qt, d, cand_blk=cb, qry_blk=qb, device=CPU)
+    want = _armed(e, q, d, cb, qb)
+    for got, ref_mbr in ((e_mbr, want[0]), (q_mbr, want[1])):
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      ref_mbr.view(np.uint32))
+    assert d_prune.dtype == torch.float32 and d_prune.dim() == 0
+    assert d_prune.numpy().view(np.uint32) == want[2].view(np.uint32)
+
+
+def test_tile_prep_meta_allocates_only():
+    """A ``meta`` dry run gives the operands' shapes and launches
+    nothing."""
+    e = torch.zeros((517, 8), dtype=torch.float32, device="meta")
+    qt = torch.zeros((8, 37), dtype=torch.float32, device="meta")
+    before = dict(dt.LAUNCHES)
+    e_mbr, q_mbr, d_prune = dt.distthresh_tile_prep(
+        e, qt, 1.0, cand_blk=64, qry_blk=16, device="meta")
+    assert tuple(e_mbr.shape) == (9, 8) and tuple(q_mbr.shape) == (3, 8)
+    assert tuple(d_prune.shape) == () and d_prune.device.type == "meta"
+    out = dt.distthresh_compact(e, qt, 1.0, capacity=8, cand_blk=64,
+                                qry_blk=16, e_mbr=e_mbr, q_mbr=q_mbr,
+                                d_prune=d_prune, device="meta")
+    assert out[0].device.type == "meta"
+    assert dict(dt.LAUNCHES) == before
 
 
 def test_query_block_torch_oracle_equals_jnp():

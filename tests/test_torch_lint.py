@@ -436,6 +436,23 @@ class TestKernRules:
         hits = kern(cu=cu)
         assert hits == [("KERN101", BUILD_PATH, 5)]
 
+    def test_double_parameter_kind(self):
+        """A ``double`` is its own kind: declared where SIGNATURES says
+        ``float``, it is a mismatch; matched by ``c_double``, clean."""
+        cu = CU_SRC.replace("long long ld, float d, void* stream",
+                            "long long ld, double d, void* stream")
+        assert kern(cu=cu) == [("KERN101", BUILD_PATH, 6)]
+        build = BUILD_SRC.replace(
+            '_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, '
+            'ctypes.c_longlong, ctypes.c_float',
+            '_P, _I, _L, _F, _D = ctypes.c_void_p, ctypes.c_int, '
+            'ctypes.c_longlong, ctypes.c_float, ctypes.c_double').replace(
+            '"k_launch": (_P, _I, _L, _F, _P),',
+            '"k_launch": (_P, _I, _L, _D, _P),')
+        cu = cu.replace("long long ld, float d,\n",
+                        "long long ld, double d,\n")
+        assert kern(build=build, cu=cu) == []
+
     def test_unparsable_prototype_skipped(self):
         cu = CU_SRC.replace("int k_launch(const float* x, int n,",
                             "int k_launch(const float* x, size_t n,")

@@ -49,6 +49,7 @@ from repro_torch.core import batching
 from repro_torch.core.engine import DistanceThresholdEngine, brute_force
 from repro_torch.core.index import (MAX_KBOXES, TemporalBinIndex, mbr_gap2,
                                     prune_limit, solve_scale)
+from repro_torch.kernels import distthresh as dt
 from repro_torch.kernels import ops, ref
 
 CPU = "cpu"
@@ -478,11 +479,20 @@ NEGATIVE_CASES = [(int(s), float(d)) for s, d in zip(
 
 
 def test_near_tangent_negative_control(monkeypatch):
-    """With ``_host_prune_threshold`` returning d itself (no slack), the
-    tile test drops float32 hits of near-tangent pairs whose box gap
-    exceeds d: property 9 must fail on at least one drawn case."""
+    """With the threshold of each route's tile test at d itself (no
+    slack: ``_host_prune_threshold``, which the hierarchical route calls,
+    and the ``d_prune`` of ``distthresh_tile_prep``, the spatial route's
+    seam), the tile test drops float32 hits of near-tangent pairs whose
+    box gap exceeds d: property 9 must fail on at least one drawn case,
+    for each route."""
+    prep = dt.distthresh_tile_prep
+
+    def prep_no_slack(entries, queries_t, d, **kw):
+        e_mbr, q_mbr, _ = prep(entries, queries_t, d, **kw)
+        return e_mbr, q_mbr, ref._f32(np.float32(d), entries.device)
     monkeypatch.setattr(ops, "_host_prune_threshold",
                         lambda d, entries, queries: float(d))
+    monkeypatch.setattr(dt, "distthresh_tile_prep", prep_no_slack)
     failed = []
     for seed, d in NEGATIVE_CASES:
         db, q = _tangent_db(np.random.default_rng(seed), d,
@@ -492,7 +502,8 @@ def test_near_tangent_negative_control(monkeypatch):
             if _keys(db.query(q, d, backend="kernel",
                               pruning=pruning)) != base:
                 failed.append((seed, d, pruning))
-    assert failed, "no drawn near-tangent case reached the band"
+    assert {p for _, _, p in failed} == {"spatial", "hierarchical"}, (
+        "a route's tile test kept every drawn near-tangent hit", failed)
 
 
 # ----------------------------------------------------------------------
@@ -510,6 +521,23 @@ FAST_LATE = (np.array([15.88990306854248, 0.0, 0.0, 3.194505453109741, 0.0,
                        8.473974227905273, 7.734529495239258, 0.0,
                        107.91468811035156, 108.13350677490234], np.float32),
              7.716147910393161)
+
+
+def test_tile_prep_keeps_the_fast_late_threshold():
+    """The spatial route's device-built threshold on the fault's pair:
+    the plain twin of ``distthresh_tile_prep`` equals the host helpers bit
+    for bit, and it keeps the pair's float32 hit."""
+    e, q, d = FAST_LATE
+    e_mbr, q_mbr, d_prune = dt.distthresh_tile_prep(
+        torch.from_numpy(e[None]), torch.from_numpy(q[None]).T.contiguous(),
+        d, cand_blk=256, qry_blk=256, device="cpu")
+    want = np.float32(ops._host_prune_threshold(d, e[None], q[None]))
+    assert d_prune.numpy().view(np.uint32) == want.view(np.uint32)
+    np.testing.assert_array_equal(e_mbr.numpy(),
+                                  ops._host_tile_mbrs(e[None], 256))
+    np.testing.assert_array_equal(q_mbr.numpy(),
+                                  ops._host_tile_mbrs(q[None], 256))
+    assert closest_approach(e, q) <= float(d_prune)
 
 
 def test_fast_late_pair_kept_by_every_pruning_mode():
