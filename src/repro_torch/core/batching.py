@@ -33,7 +33,9 @@ Algorithms:
 * :func:`setsplit_max` — Algorithm 3 with ``min=1`` (paper §6.2 last line).
 * :func:`greedysetsplit_min` / :func:`greedysetsplit_max` — Algorithm 4:
   one pass of "free" merges (merges that add zero interactions), then one
-  constraint pass.  O(|Q|) merge decisions.
+  constraint pass.  O(|Q|) merge decisions, priced in a few array calls
+  over prefix unions (:class:`_FreeRuns`), with the plan the one-merge-
+  at-a-time loop gives.
 
 The SETSPLIT loops are vectorized with numpy (all adjacent-pair merge costs
 are evaluated per iteration with ``candidate_range_batch``), which keeps
@@ -186,7 +188,7 @@ class _BatchState:
 
     def merged_ints(self, i: int) -> int:
         """numInts of the would-be merge of batches i and i+1 (the scalar
-        the GREEDYSETSPLIT free-merge test and the MINMAX fix-up use)."""
+        the MINMAX fix-up uses)."""
         qt0 = self.qt0[i]
         qt1 = max(self.qt1[i], self.qt1[i + 1])
         size = int(self.sizes[i] + self.sizes[i + 1])
@@ -333,36 +335,178 @@ def setsplit_max(index: TemporalBinIndex, queries: SegmentArray,
 # ----------------------------------------------------------------------
 # GREEDYSETSPLIT (paper §6.3, Algorithm 4)
 # ----------------------------------------------------------------------
+class _FreeRuns:
+    """GREEDYSETSPLIT's pricing, in array calls.
+
+    The price of a contiguous run ``[a..b]`` is its candidate count: the
+    counter's pruned estimate (or, without one, the temporal count) for
+    the extent ``[ts[a], max te[a..b]]`` and the union of the run's query
+    MBRs.  Unions are running maxima and minima in float64, so they are
+    exact and independent of order: the union of a prefix, accumulated in
+    one array call, equals bit for bit the union the paper's pairwise
+    merges build, and so does its price.  That needs a row's price to
+    depend on that row alone: :class:`SpatialInteractionCounter` sizes
+    its threshold by the queries' ``solve_scale``, which bounds every
+    union's coordinates, and not by the rows of a call.
+
+    :meth:`runs` settles pass 1.  Per query ``p`` it holds the run from
+    ``p`` known free so far: its length ``ln[p]``, price ``cur[p]`` and
+    union, and ``done[p]`` once the run has stopped.  A run from ``p`` is
+    a run of the plan only if ``p`` is where the previous one stopped, so
+    the chain of starts is walked as far as it is settled, and what is
+    still open is extended in one of two ways, each one array call:
+
+    * a round extends every open start by the same window, doubling
+      from 1, while the open starts are at most a quarter of the
+      queries still unsettled and their rows fit a budget of ``n``.
+      Short runs scattered among singletons settle this way in a few
+      calls;
+    * otherwise the chain's first open start alone is extended, over a
+      window of the larger of its length and the previous such run's
+      (long runs of one shape then settle in one call each), doubling
+      while it stays free.
+
+    Rows priced stay linear in ``n``: ``n`` singletons, ``n - 1`` pairs,
+    at most ``n`` in rounds, for each run settled over windows at most
+    three times its length plus the previous such run's (``4n`` in all),
+    and one row per batch for the final prices: under ``8n``.
+    """
+
+    def __init__(self, index: TemporalBinIndex, queries: SegmentArray,
+                 counter: SpatialInteractionCounter | None):
+        if not queries.is_sorted():
+            raise ValueError("queries must be sorted by t_start (paper §4)")
+        self.n = n = len(queries)
+        if n == 0:
+            raise ValueError("empty query set")
+        self.index = index
+        self.counter = counter
+        self.ts = queries.ts.astype(np.float64)
+        self.te = queries.te.astype(np.float64)
+        # Without a counter the MBR unions are carried along unread.
+        self.qlo, self.qhi = ((counter.qlo, counter.qhi) if counter is not None
+                              else (np.zeros((n, 3)), np.zeros((n, 3))))
+
+    def price(self, first, qt1, lo, hi) -> np.ndarray:
+        """Candidate counts of the runs starting at ``first`` with the
+        unions ``qt1``, ``lo``, ``hi``."""
+        qt0 = self.ts[first]
+        if self.counter is None:
+            return self.index.num_candidates_batch(qt0, qt1)
+        return self.counter.counts(qt0, qt1, lo, hi)
+
+    def runs(self) -> np.ndarray:
+        """Pass 1 (Algorithm 4, lines 4–11): the lengths of the free runs,
+        in order.  Extending run ``[a..b]`` by ``b + 1`` is free iff
+        ``(s + 1)·C([a..b+1]) == s·C([a..b]) + C([b+1])``, ``s = b - a + 1``."""
+        n = self.n
+        self.c1 = self.price(np.arange(n), self.te, self.qlo, self.qhi)
+        self.ln = np.ones(n, np.int64)
+        self.cur = self.c1.copy()
+        self.uq, self.ulo, self.uhi = (self.te.copy(), self.qlo.copy(),
+                                       self.qhi.copy())
+        self.done = np.arange(n) == n - 1
+        if n > 1:
+            self._extend(np.arange(n - 1), 1)      # every adjacent pair
+        open_ = np.nonzero(~self.done)[0]
+        out: list[int] = []
+        a = self._walk(0, out)
+        w, budget, seed = 1, n, 1
+        while a < n:
+            # Starts inside the chain's open run cannot start a run.
+            open_ = open_[~self.done[open_]
+                          & ((open_ == a) | (open_ >= a + self.ln[a]))]
+            if 4 * open_.size <= n - a and open_.size * w <= budget:
+                budget -= self._extend(open_, w)
+                w *= 2
+            else:
+                ln = int(self.ln[a])
+                self._extend(np.array([a]), min(max(ln, seed), n - a - ln))
+                if self.done[a]:
+                    seed = int(self.ln[a])
+            a = self._walk(a, out)
+        return np.array(out, np.int64)
+
+    def _walk(self, a: int, out: list[int]) -> int:
+        """Follow the chain of settled runs from start ``a``; returns the
+        first start still open (or ``n``)."""
+        while a < self.n and self.done[a]:
+            out.append(int(self.ln[a]))
+            a += int(self.ln[a])
+        return a
+
+    def _extend(self, starts: np.ndarray, w: int) -> int:
+        """Price the next ``w`` prefixes of the open runs at ``starts`` in
+        one call and settle those that stop; returns the rows priced."""
+        n = self.n
+        ln = self.ln[starts]
+        j = (starts + ln)[:, None] + np.arange(w)[None, :]   # (m, w)
+        valid = j < n
+        j = np.minimum(j, n - 1)
+        q1 = np.maximum(np.maximum.accumulate(self.te[j], axis=1),
+                        self.uq[starts][:, None])
+        lo = np.minimum(np.minimum.accumulate(self.qlo[j], axis=1),
+                        self.ulo[starts][:, None])
+        hi = np.maximum(np.maximum.accumulate(self.qhi[j], axis=1),
+                        self.uhi[starts][:, None])
+        prices = np.zeros(j.shape, np.int64)
+        prices[valid] = self.price(
+            np.broadcast_to(starts[:, None], j.shape)[valid], q1[valid],
+            lo[valid], hi[valid])
+        size = ln[:, None] + np.arange(1, w + 1)[None, :]
+        before = np.concatenate([self.cur[starts][:, None], prices[:, :-1]],
+                                axis=1)
+        stop = ~valid | (size * prices != (size - 1) * before + self.c1[j])
+        k = np.where(stop.any(axis=1), stop.argmax(axis=1), w)
+        self.ln[starts] = ln + k
+        self.done[starts] = (k < w) | (starts + ln + k == n)
+        grown = k == w
+        g = starts[grown]
+        self.cur[g] = prices[grown, -1]
+        self.uq[g] = q1[grown, -1]
+        self.ulo[g] = lo[grown, -1]
+        self.uhi[g] = hi[grown, -1]
+        return int(valid.sum())
+
+    def batches(self, sizes: np.ndarray) -> list[QueryBatch]:
+        """The plan's batches of ``sizes`` consecutive queries, each priced
+        once for its ``num_ints`` (one call)."""
+        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        qt0 = self.ts[starts]
+        qt1 = np.maximum.reduceat(self.te, starts)
+        num_ints = sizes * self.price(
+            starts, qt1, np.minimum.reduceat(self.qlo, starts, axis=0),
+            np.maximum.reduceat(self.qhi, starts, axis=0))
+        first, last = self.index.candidate_range_batch(qt0, qt1)
+        return [QueryBatch(int(a), int(a + s - 1), float(t0), float(t1),
+                           int(f), int(l), int(i))
+                for a, s, t0, t1, f, l, i
+                in zip(starts, sizes, qt0, qt1, first, last, num_ints)]
+
+
 def _greedy(index: TemporalBinIndex, queries: SegmentArray, bound: int,
             variant: str,
             counter: SpatialInteractionCounter | None = None) -> BatchPlan:
     t_begin = time.perf_counter()
-    st = _BatchState(index, queries, counter)
+    fr = _FreeRuns(index, queries, counter)
     # Phase 1 (lines 4–11): single pass of free merges.  A merge is free iff
     # numInts(merge) == numInts(B[i]) + numInts(B[i+1]).
-    i = 0
-    while i < len(st) - 1:
-        if st.merged_ints(i) == st.num_ints[i] + st.num_ints[i + 1]:
-            st.merge_at(i)
+    runs = fr.runs()
+    # Phase 2 (lines 13–20): constraint pass, which reads sizes alone.
+    # "min" absorbs the next batch while the current one is smaller than
+    # the bound.  "max": the paper swaps the test and the clauses — merge
+    # while the current batch has not yet exceeded the bound.  The bound is
+    # soft (the merge that crosses it is still performed), exactly as the
+    # literal transformation of line 14 dictates.
+    sizes = [int(runs[0])]
+    for r in runs[1:].tolist():
+        absorb = sizes[-1] < bound if variant == "min" else sizes[-1] <= bound
+        if absorb:
+            sizes[-1] += r
         else:
-            i += 1
-    # Phase 2 (lines 13–20): constraint pass.
-    i = 0
-    while i < len(st) - 1:
-        if variant == "min":
-            if st.sizes[i] < bound:
-                st.merge_at(i)
-            else:
-                i += 1
-        else:  # "max": paper swaps the test and the clauses — merge while the
-            # current batch has not yet exceeded the bound.  The bound is soft
-            # (the merge that crosses it is still performed), exactly as the
-            # literal transformation of line 14 dictates.
-            if st.sizes[i] > bound:
-                i += 1
-            else:
-                st.merge_at(i)
-    return _finish(f"greedysetsplit-{variant}", {"bound": bound}, st, t_begin)
+            sizes.append(r)
+    return _finish(f"greedysetsplit-{variant}", {"bound": bound},
+                   fr.batches(np.array(sizes, np.int64)), t_begin)
 
 
 def greedysetsplit_min(index: TemporalBinIndex, queries: SegmentArray,
