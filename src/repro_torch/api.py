@@ -62,6 +62,7 @@ from repro_torch.core.planner import PRUNINGS, QueryPlan, QueryPlanner
 from repro_torch.core.rtree import RTreeEngine
 from repro_torch.core.scheduler import DeadlineScheduler, SchedulerStats
 from repro_torch.core.segments import SegmentArray
+from repro_torch.core.trace import collect, span
 from repro_torch.kernels.distthresh import DEFAULT_CAND_BLK, DEFAULT_QRY_BLK
 
 #: Names accepted by ``TrajectoryDB.query(backend=...)``.
@@ -207,7 +208,12 @@ class QueryResult:
         ``None`` means the caller's queries were already sorted."""
         q_caller = (rs.query_idx if order is None
                     else order[rs.query_idx])
-        rank = np.lexsort((rs.entry_idx, q_caller))
+        if stats is None:
+            rank = _caller_rank(q_caller, rs.entry_idx)
+        else:
+            with collect(stats.spans) as spans:
+                rank = _caller_rank(q_caller, rs.entry_idx)
+            stats.spans = spans
         return QueryResult(
             entry_idx=rs.entry_idx[rank],
             entry_traj=rs.entry_traj[rank],
@@ -235,6 +241,46 @@ class QueryResult:
         """``ResultSet`` view (``query_idx`` stays in caller order)."""
         return ResultSet(self.entry_idx, self.entry_traj, self.entry_seg,
                          self.query_idx, self.t_enter, self.t_exit)
+
+
+def _caller_rank(q_caller: np.ndarray, entry_idx: np.ndarray) -> np.ndarray:
+    """The permutation ``np.lexsort((entry_idx, q_caller))`` gives.
+
+    Each row's (``q_caller``, ``entry_idx``) and its position go on one
+    int64, ``(q_caller * m + entry_idx) << b | row`` with ``m =
+    entry_idx.max() + 1`` and ``b`` the bits of the last row's position;
+    one sort of those values and a mask give the rank.  The values are
+    distinct and rows that tie keep their order, as in the (stable)
+    lexsort, so every sort gives its permutation.  Where the values would
+    pass int64 (or the indices are negative or not integers) the lexsort
+    runs instead (span ``order.rank_lexsort``)."""
+    with span("order.rank"):
+        rank = _packed_rank(q_caller, entry_idx)
+    if rank is None:
+        with span("order.rank_lexsort"):
+            rank = np.lexsort((entry_idx, q_caller))
+    return rank
+
+
+def _packed_rank(q: np.ndarray, e: np.ndarray) -> np.ndarray | None:
+    """The rank by one sort of packed int64 values, or None where they
+    cannot be formed."""
+    n = len(e)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    if q.dtype.kind not in "iu" or e.dtype.kind not in "iu":
+        return None
+    q_min, q_max = int(q.min()), int(q.max())
+    e_min, m = int(e.min()), int(e.max()) + 1
+    bits = (n - 1).bit_length()
+    if q_min < 0 or e_min < 0 or (q_max + 1) * m << bits >= 2 ** 63:
+        return None
+    packed = q.astype(np.int64) * m + e.astype(np.int64, copy=False)
+    packed <<= bits
+    packed |= np.arange(n, dtype=np.int64)
+    packed.sort()
+    packed &= (1 << bits) - 1
+    return packed
 
 
 # ----------------------------------------------------------------------

@@ -135,8 +135,9 @@ class ExecStats:
     #: degradation-ladder steps taken while producing this result
     #: (filled in by the serving broker; empty on a clean execution).
     degradations: list = dataclasses.field(default_factory=list)
-    #: program span name -> (calls, host seconds) over the plan and this
-    #: run (``repro_torch.core.trace``); empty unless a profiler recorded.
+    #: program span name -> (calls, host seconds) over the plan, this run
+    #: and the facade's rank into the caller's order
+    #: (``repro_torch.core.trace``); empty unless a profiler recorded.
     spans: dict = dataclasses.field(default_factory=dict)
 
     @property

@@ -9,13 +9,14 @@ they observe knowing of them:
   :func:`_group_scope`.  ``repro_torch.lint.sentinel`` blames a
   device→host stall on it.  Always on; a group scope opens no profiler
   range.
-* :func:`span` — a named piece of host work in the planner or the
-  dispatcher.  Tracing is on exactly while ``torch.profiler`` records in
-  this process.  Then a span is a range ``repro_torch.<name>`` among the
-  profiler's events, on the profiler's clock, and adds one call and its
-  host seconds to the accumulator the thread's :func:`collect` opened
-  (``QueryPlan.spans``, ``ExecStats.spans``).  Off, a span is one check
-  and a shared null context: no range, no clock read, no write.
+* :func:`span` — a named piece of host work in the planner, the
+  dispatcher or the facade.  Tracing is on exactly while
+  ``torch.profiler`` records in this process.  Then a span is a range
+  ``repro_torch.<name>`` among the profiler's events, on the profiler's
+  clock, and adds one call and its host seconds to the accumulator the
+  thread's :func:`collect` opened (``QueryPlan.spans``,
+  ``ExecStats.spans``).  Off, a span is one check and a shared null
+  context: no range, no clock read, no write.
 
 The ranges are operator-level ranges (``_RecordFunctionFast``), not user
 annotations: the profiler copies a user annotation onto the device's
@@ -43,6 +44,12 @@ span                          host work
                               launch of the compaction)
 ``dispatch.stage``            ``engine._stage_to_host``: pinned buffers and
                               the asynchronous copies into them
+``order.rank``                ``api._caller_rank``: the rank into the
+                              caller's order by one sort of packed int64
+                              (query, entry, row) values
+``order.rank_lexsort``        the two-key ``np.lexsort`` it falls back to
+                              where the values would pass int64; its
+                              calls count the fallbacks
 ============================  ==============================================
 """
 from __future__ import annotations

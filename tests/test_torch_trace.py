@@ -2,15 +2,16 @@
 
 With no profiler recording a span is a shared null context: no range is
 entered and ``ExecStats.spans`` stays empty.  Under
-``torch.profiler.profile`` a query names the planner's four phases and
-the dispatcher's pieces of host work as ``repro_torch.*`` events inside
-the call, each counted in ``ExecStats.spans``; the preparation runs once
-per dispatch and again per overflow re-dispatch;
-``ExecStats.plan_seconds`` covers all of ``QueryPlanner.plan``; the
-dispatch-group labels and the rows are the same traced or not.  Database:
-C3 at scale 0.05 (32 query segments, 50,000 entries).  The default
-(spatial) route builds its tile operands on the device and uploads
-nothing, so ``dispatch.upload`` shows only on the live-tile route."""
+``torch.profiler.profile`` a query names the planner's four phases, the
+dispatcher's pieces of host work and the facade's rank into the caller's
+order as ``repro_torch.*`` events inside the call, each counted in
+``ExecStats.spans``; the preparation runs once per dispatch and again
+per overflow re-dispatch; ``ExecStats.plan_seconds`` covers all of
+``QueryPlanner.plan``; the dispatch-group labels and the rows are the
+same traced or not.  Database: C3 at scale 0.05 (32 query segments,
+50,000 entries).  The default (spatial) route builds its tile operands
+on the device and uploads nothing, so ``dispatch.upload`` shows only on
+the live-tile route."""
 import collections
 import threading
 import time
@@ -137,12 +138,12 @@ def test_no_profiler_no_spans_and_no_ranges(monkeypatch, query):
 def test_a_traced_query_names_every_span_inside_the_call(query):
     res, events, call = profiled(query)
     seen = collections.Counter(n for n, _, _ in events)
-    assert set(seen) == set(SPANS) - {"dispatch.upload"}
+    assert set(seen) == set(SPANS) - {"dispatch.upload"} | {"order.rank"}
     assert all(call[0] <= s <= e <= call[1] for _, s, e in events)
     st = res.stats
     assert {k: c for k, (c, _) in st.spans.items()} == dict(seen)
     assert all(s > 0 for _, s in st.spans.values())
-    for name in SPANS[:4]:
+    for name in SPANS[:4] + ("order.rank",):
         assert seen[name] == 1
     live = sum(b.num_candidates > 0 for b in st.batches)
     assert seen["dispatch.launch"] == seen["dispatch.stage"] == live
@@ -209,7 +210,8 @@ def test_group_labels_are_the_same_traced_or_not(monkeypatch, query):
     assert seen == off and off
     assert {lbl.split(":")[1] for kind, lbl in off} == {"dispatch", "finish"}
     assert all(lbl.startswith("pipelined:") for _, lbl in off)
-    assert {n.split(".")[0] for n, _, _ in events} <= {"plan", "dispatch"}
+    assert {n.split(".")[0] for n, _, _ in events} <= {"plan", "dispatch",
+                                                        "order"}
     assert current_group_label() is None
 
 
