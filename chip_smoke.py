@@ -520,11 +520,12 @@ def compare_compact(k, p_full, capacity, label):
 def host_armed(e_np, q_np, d, cand_blk: int, qry_blk: int, dev) -> dict:
     """The compact kernels' early-out operands from the host helpers, the
     threshold as a number: the wrapper's other ``d_prune`` form."""
+    from repro_torch.core.index import dispatch_prune_threshold
     from repro_torch.kernels import ops
     return dict(
         e_mbr=torch.from_numpy(ops._host_tile_mbrs(e_np, cand_blk)).to(dev),
         q_mbr=torch.from_numpy(ops._host_tile_mbrs(q_np, qry_blk)).to(dev),
-        d_prune=np.float32(ops._host_prune_threshold(d, e_np, q_np)))
+        d_prune=np.float32(dispatch_prune_threshold(d, e_np, q_np)))
 
 
 def _zero_sign(a: np.ndarray) -> np.ndarray:
@@ -539,11 +540,12 @@ def prep_equal(e_np, q_np, e, qt, d, label, cand_blk=256,
     the same rows: ``d_prune`` bit for bit, the boxes bit for bit but for
     the sign of a zero.  Returns the box entries whose bits differ only in
     that sign."""
+    from repro_torch.core.index import dispatch_prune_threshold
     from repro_torch.kernels import distthresh as dt
     from repro_torch.kernels import ops
     got = dt.distthresh_tile_prep(e, qt, d, cand_blk=cand_blk,
                                   qry_blk=qry_blk, device=e.device)
-    want_d = np.float32(ops._host_prune_threshold(d, e_np, q_np))
+    want_d = np.float32(dispatch_prune_threshold(d, e_np, q_np))
     got_d = got[2].cpu().numpy()
     check(got_d.view(np.uint32) == want_d.view(np.uint32),
           f"{label}: d_prune {float(got_d)!r}, host {float(want_d)!r}")
@@ -1570,7 +1572,7 @@ def property_case(i: int, dev) -> dict:
 
 def no_slack_mismatches(i: int, dev) -> dict:
     """Case i (near-tangent) with the tile test's slack removed (the
-    threshold at d: ``ops._host_prune_threshold`` for the hierarchical
+    threshold at d: ``dispatch_prune_threshold`` for the hierarchical
     route, ``distthresh_tile_prep``'s ``d_prune`` for the spatial one):
     per route, the pairs in which its fused rows differ from ``none``'s
     (single-query batches, so each query tile is one query's box)."""
@@ -1583,19 +1585,19 @@ def no_slack_mismatches(i: int, dev) -> dict:
             **fields, batching="periodic", batch_params={"s": 1}))
     q = segments_of(qry)
     base = pair_keys(db.query(q, d, backend="kernel", pruning="none"))
-    host, prep = ops._host_prune_threshold, dt.distthresh_tile_prep
+    host, prep = ops.dispatch_prune_threshold, dt.distthresh_tile_prep
 
     def prep_no_slack(entries, queries_t, d, **kw):
         e_mbr, q_mbr, _ = prep(entries, queries_t, d, **kw)
         return e_mbr, q_mbr, ref._f32(np.float32(d), entries.device)
-    ops._host_prune_threshold = lambda d, entries, queries: float(d)
+    ops.dispatch_prune_threshold = lambda d, entries, queries: float(d)
     dt.distthresh_tile_prep = prep_no_slack
     try:
         return {p: len(base ^ pair_keys(db.query(
             q, d, backend="kernel", pruning=p)))
             for p in ("spatial", "hierarchical")}
     finally:
-        ops._host_prune_threshold, dt.distthresh_tile_prep = host, prep
+        ops.dispatch_prune_threshold, dt.distthresh_tile_prep = host, prep
 
 
 def plan_slices(db, queries, pol, d):

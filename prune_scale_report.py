@@ -9,8 +9,8 @@ CPU, for one source tree.
 (S1-S10) and C1 and C3, at ``--scale`` (default 0.01), the script builds
 ``TrajectoryDB.from_scenario(..., device="cpu")`` and prints one JSON
 line: the database's and queries' sizes, ``d``, the largest coordinate,
-the index's prune scale (``TemporalBinIndex._prune_scale``) and the
-slack it gives at ``d`` (``prune_limit(d, scale) − d``), and, for
+the slack of the index's prune threshold for these queries at ``d``
+(``TemporalBinIndex.prune_threshold(d, queries) − d``), and, for
 ``pruning`` none, spatial and hierarchical (K = 4 boxes), the candidate
 interactions the plan dispatches, the interactions the planner pruned,
 the kernel tiles the tile test skipped of all tiles, and the hits.  The
@@ -37,18 +37,16 @@ SCENARIOS = ("S1", "S2", "S3", "S4", "S5", "S6", "S7", "S8", "S9", "S10",
 
 def report(name: str, scale: float) -> dict:
     from repro_torch.api import ExecutionPolicy, TrajectoryDB
-    from repro_torch.core.index import prune_limit
     t0 = time.perf_counter()
     db = TrajectoryDB.from_scenario(name, scale=scale, device="cpu")
     q, d = db.scenario_queries, db.scenario_d
     boxes = TrajectoryDB(db.segments, device="cpu",
                          policy=ExecutionPolicy(index_kboxes=4))
-    pscale = float(db.index._prune_scale)
     out = {"scenario": name, "scale": scale, "entries": len(db),
            "queries": len(q), "d": d,
            "coords": max(float(np.abs(db.segments.packed()[:, 0:6]).max()),
                          float(np.abs(q.packed()[:, 0:6]).max()), 1.0),
-           "prune_scale": pscale, "slack": prune_limit(d, pscale) - d}
+           "slack": db.index.prune_threshold(d, q.packed()) - d}
     modes = {}
     for pruning, tdb in (("none", db), ("spatial", db),
                          ("hierarchical", boxes)):

@@ -55,7 +55,7 @@ from typing import Callable
 
 import numpy as np
 
-from repro_torch.core.index import TemporalBinIndex, solve_scale
+from repro_torch.core.index import TemporalBinIndex
 from repro_torch.core.segments import SegmentArray
 
 
@@ -123,18 +123,17 @@ class SpatialInteractionCounter:
                  d: float, *, level: str = "bin",
                  max_subranges: int | None = None):
         self.index = index
-        self.d = float(d)
         self.level = level
         self.max_subranges = max_subranges
         self.qlo, self.qhi = queries.mbrs()      # (nq, 3) float64
-        self.qscale = solve_scale(queries.packed())
+        self.limit = index.prune_threshold(float(d), queries.packed())
 
     def counts(self, qt0, qt1, lo, hi) -> np.ndarray:
         """Pruned candidate counts for batches with extents (qt0, qt1) and
         query-MBR unions (lo, hi) — all stacked arrays."""
         return self.index.estimate_pruned_candidates_batch(
-            qt0, qt1, lo, hi, self.d, level=self.level,
-            max_subranges=self.max_subranges, qscale=self.qscale)
+            qt0, qt1, lo, hi, limit=self.limit, level=self.level,
+            max_subranges=self.max_subranges)
 
 
 # ----------------------------------------------------------------------
@@ -345,9 +344,10 @@ class _FreeRuns:
     exact and independent of order: the union of a prefix, accumulated in
     one array call, equals bit for bit the union the paper's pairwise
     merges build, and so does its price.  That needs a row's price to
-    depend on that row alone: :class:`SpatialInteractionCounter` sizes
-    its threshold by the queries' ``solve_scale``, which bounds every
-    union's coordinates, and not by the rows of a call.
+    depend on that row alone: :class:`SpatialInteractionCounter` holds
+    one threshold for the whole query set
+    (:meth:`~repro_torch.core.index.TemporalBinIndex.prune_threshold`),
+    not one sized by the rows of a call.
 
     :meth:`runs` settles pass 1.  Per query ``p`` it holds the run from
     ``p`` known free so far: its length ``ln[p]``, price ``cur[p]`` and

@@ -12,8 +12,6 @@ marshalling is numpy on host memory.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -22,8 +20,7 @@ from repro_torch.core.batching import BatchPlan
 from repro_torch.core.executor import (BatchStats, Dispatch,  # noqa: F401 (stable re-exports)
                                        ExecStats, ResultSet, make_executor,
                                        watch_staged)
-from repro_torch.core.index import (DEFAULT_NUM_BINS, TemporalBinIndex,
-                                    solve_scale)
+from repro_torch.core.index import DEFAULT_NUM_BINS, TemporalBinIndex
 from repro_torch.core.planner import (QueryPlan, as_query_plan,
                                       bucket_capacity as _bucket)
 from repro_torch.core.segments import SegmentArray
@@ -168,15 +165,10 @@ class DistanceThresholdEngine:
         self.device = resolve_device(device)
         self.db = db if db.is_sorted() else db.sort_by_tstart()
         self._packed = self.db.packed()          # (n, 8) float32, host copy
-        if index is None:
-            index = TemporalBinIndex.build(self.db, num_bins,
-                                           kboxes=index_kboxes)
-        elif index._prune_scale < (scale := solve_scale(self._packed)):
-            # A carried index (the reference's, through
-            # ``state.index_from_numpy``) sizes its prune slack by the
-            # coordinates alone; the port's build sizes it by solve_scale.
-            index = dataclasses.replace(index, _prune_scale=scale)
-        self.index = index
+        self.index = (TemporalBinIndex.build(self.db, num_bins,
+                                             kboxes=index_kboxes)
+                      if index is None
+                      else index.at_least_scale_of(self._packed))
         # Permuted layout for hierarchical (box-level) plans: row i holds
         # the segment at sorted-db position perm[i].  Alias when K=1.
         self._packed_perm = (self._packed if self.index.perm is None

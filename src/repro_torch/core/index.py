@@ -158,6 +158,14 @@ def solve_scale(packed: np.ndarray) -> float:
     return float(max(mag.max(), 1.0))
 
 
+def dispatch_prune_threshold(d, entries: np.ndarray,
+                             queries: np.ndarray) -> float:
+    """The tile-prune threshold of one dispatch: :func:`prune_limit` at
+    the :func:`solve_scale` of its packed entries and queries."""
+    return prune_limit(float(d), max(solve_scale(entries),
+                                     solve_scale(queries)))
+
+
 @dataclasses.dataclass
 class TemporalBinIndex:
     """The bin description arrays + the sorted segment t arrays they index."""
@@ -436,16 +444,23 @@ class TemporalBinIndex:
     # ------------------------------------------------------------------
     # spatial pruning
     # ------------------------------------------------------------------
-    def _limit(self, d: float, qlo: np.ndarray, qhi: np.ndarray,
-               qscale: float) -> float:
-        """The inflated prune threshold for one query MBR (or a stack).
-        ``qscale`` is the queries' :func:`solve_scale`; the MBR alone
-        gives only their coordinates."""
-        finite = np.isfinite(qlo) & np.isfinite(qhi)
-        cscale = (float(max(np.abs(qlo[finite]).max(initial=0.0),
-                            np.abs(qhi[finite]).max(initial=0.0)))
-                  if finite.any() else 0.0)
-        return prune_limit(d, max(self._prune_scale, cscale, float(qscale)))
+    def prune_threshold(self, d: float, queries: np.ndarray) -> float:
+        """The inflated prune threshold at ``d`` for a set of packed
+        (n, 8) ``queries``: :func:`prune_limit` at the larger of the
+        database's and the queries' :func:`solve_scale`.  It bounds every
+        MBR drawn from those queries, so one value serves every pricing
+        and sub-range call of the set."""
+        return prune_limit(d, max(self._prune_scale, solve_scale(queries)))
+
+    def at_least_scale_of(self, packed: np.ndarray) -> "TemporalBinIndex":
+        """This index, or a copy whose prune slack is sized by the
+        :func:`solve_scale` of the packed segments ``packed`` where its
+        own is smaller (a carried reference index sizes it by the
+        coordinates alone)."""
+        scale = solve_scale(packed)
+        if self._prune_scale >= scale:
+            return self
+        return dataclasses.replace(self, _prune_scale=scale)
 
     def _bin_runs(self, bins: slice, j_lo: int, qt0: float, qlo, qhi,
                   lim2: float, first: int, last: int) -> list[list[int]]:
@@ -494,14 +509,15 @@ class TemporalBinIndex:
         return _coalesce_runs(kf, kl, first, last)
 
     def candidate_subranges(self, qt0: float, qt1: float,
-                            qlo: np.ndarray, qhi: np.ndarray, d: float, *,
+                            qlo: np.ndarray, qhi: np.ndarray, *,
+                            limit: float,
                             max_subranges: int = DEFAULT_MAX_SUBRANGES,
-                            level: str = "bin",
-                            qscale: float) -> list[tuple[int, int]]:
+                            level: str = "bin") -> list[tuple[int, int]]:
         """Spatially pruned candidate sub-ranges for one query extent.
 
         ``qlo``/``qhi`` is the (3,) union MBR of the query segments sharing
-        the extent ``[qt0, qt1]`` (a batch); ``d`` the distance threshold.
+        the extent ``[qt0, qt1]`` (a batch); ``limit`` the inflated
+        threshold of the query set, :meth:`prune_threshold`.
         Returns disjoint, increasing, inclusive ``(first, last)`` segment
         index sub-ranges — the temporal ``candidate_range`` with every run
         of bins (``level="bin"``) or per-bin K-boxes
@@ -517,9 +533,7 @@ class TemporalBinIndex:
         work — pruning may only shrink, never grow, the result, and on
         multi-modal extents a too-small cap silently merges across huge
         gaps, which is why the cap is policy-tunable and priced by
-        :meth:`estimate_pruned_candidates_batch`).  ``qscale`` (required)
-        is the queries' :func:`solve_scale`, which sizes the threshold's
-        slack with the database's.
+        :meth:`estimate_pruned_candidates_batch`).
         """
         r = self._bin_range(qt0, qt1)
         if r is None:
@@ -531,8 +545,7 @@ class TemporalBinIndex:
             return []
         qlo = np.asarray(qlo, np.float64)
         qhi = np.asarray(qhi, np.float64)
-        lim = self._limit(d, qlo, qhi, qscale)
-        lim2 = lim * lim
+        lim2 = limit * limit
         # Whole-range quick reject: the range's true MBR union is a subset
         # of both prefix[j_hi] and suffix[j_lo], so the larger box distance
         # lower-bounds the distance to everything in the range.
@@ -566,21 +579,21 @@ class TemporalBinIndex:
             subs = merged
         return [(int(f), int(l)) for f, l in subs]
 
-    def pruned_num_candidates(self, qt0: float, qt1: float, qlo, qhi,
-                              d: float, *,
+    def pruned_num_candidates(self, qt0: float, qt1: float, qlo, qhi, *,
+                              limit: float,
                               max_subranges: int = DEFAULT_MAX_SUBRANGES,
-                              level: str = "bin", qscale: float) -> int:
+                              level: str = "bin") -> int:
         """Exact candidate count surviving :meth:`candidate_subranges`."""
         return sum(l - f + 1 for f, l in
-                   self.candidate_subranges(qt0, qt1, qlo, qhi, d,
+                   self.candidate_subranges(qt0, qt1, qlo, qhi, limit=limit,
                                             max_subranges=max_subranges,
-                                            level=level, qscale=qscale))
+                                            level=level))
 
-    def estimate_pruned_candidates_batch(self, qt0, qt1, qlo, qhi,
-                                         d: float, *,
+    def estimate_pruned_candidates_batch(self, qt0, qt1, qlo, qhi, *,
+                                         limit: float,
                                          level: str = "bin",
-                                         max_subranges: int | None = None,
-                                         qscale: float) -> np.ndarray:
+                                         max_subranges: int | None = None
+                                         ) -> np.ndarray:
         """Vectorized pruned-candidate estimate over the coarse bin grid.
 
         ``qt0``/``qt1`` are (n,) extents, ``qlo``/``qhi`` (n, 3) query-MBR
@@ -611,15 +624,15 @@ class TemporalBinIndex:
         ov = (np.minimum(last[:, None], cl[None, :])
               - np.maximum(first[:, None], cf[None, :]) + 1)
         ov = np.maximum(ov, 0)
-        lim = self._limit(float(d), qlo, qhi, qscale)
+        lim2 = limit * limit
         if level == "box":
             gap2 = mbr_gap2(self._coarse_klo[None], self._coarse_khi[None],
                             qlo[:, None, None], qhi[:, None, None])  # (n,k,K)
-            keep = (gap2 <= lim * lim).any(axis=2)
+            keep = (gap2 <= lim2).any(axis=2)
         else:
             gap2 = mbr_gap2(self._coarse_lo[None], self._coarse_hi[None],
                             qlo[:, None], qhi[:, None])     # (n, k)
-            keep = gap2 <= lim * lim
+            keep = gap2 <= lim2
         est = (ov * keep).sum(axis=1).astype(np.int64)
         if max_subranges is not None:
             kk = keep & (ov > 0)

@@ -41,7 +41,6 @@ import torch
 
 from repro_torch.core.batching import periodic
 from repro_torch.core.engine import DistanceThresholdEngine
-from repro_torch.core.index import solve_scale
 from repro_torch.core.segments import SegmentArray
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -194,7 +193,7 @@ def estimate_alpha_by_epoch(engine: DistanceThresholdEngine,
     qlo = qhi = None
     if pruning == "spatial":
         qlo, qhi = sample_queries.mbrs()
-        qscale = solve_scale(q_packed)
+        limit = engine.index.prune_threshold(float(d), q_packed)
     alphas = np.full(num_epochs, np.nan)
     for ep in range(num_epochs):
         in_ep = np.nonzero((qts >= edges[ep]) & (qts < edges[ep + 1]))[0]
@@ -210,7 +209,7 @@ def estimate_alpha_by_epoch(engine: DistanceThresholdEngine,
             if pruning == "spatial":
                 ranges = engine.index.candidate_subranges(
                     qt0, qt1, qlo[start:stop].min(axis=0),
-                    qhi[start:stop].max(axis=0), float(d), qscale=qscale)
+                    qhi[start:stop].max(axis=0), limit=limit)
             else:
                 first, last = engine.index.candidate_range(qt0, qt1)
                 ranges = [(first, last)] if last >= first else []

@@ -367,10 +367,9 @@ class QueryPlanner:
             hi = qhi[b.q_first:b.q_last + 1].max(axis=0)
             sub_kw = {} if self.max_subranges is None else {
                 "max_subranges": self.max_subranges}
-            subs = self.index.candidate_subranges(b.qt0, b.qt1, lo, hi,
-                                                  counter.d, level=level,
-                                                  qscale=counter.qscale,
-                                                  **sub_kw)
+            subs = self.index.candidate_subranges(
+                b.qt0, b.qt1, lo, hi, limit=counter.limit, level=level,
+                **sub_kw)
             if not subs:
                 out.append(QueryBatch(b.q_first, b.q_last, b.qt0, b.qt1,
                                       0, -1, 0))

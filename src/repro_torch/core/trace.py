@@ -28,7 +28,7 @@ work.
 span                          host work
 ============================  ==============================================
 ``plan.price_setup``          ``SpatialInteractionCounter``: the queries'
-                              MBRs and ``solve_scale``
+                              MBRs and prune threshold
 ``plan.batching``             the batching algorithm, its merges and
                               their pricing calls
 ``plan.subranges``            ``QueryPlanner._prune_batches``

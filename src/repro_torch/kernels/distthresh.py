@@ -348,8 +348,8 @@ def distthresh_tile_prep(entries: torch.Tensor, queries_t: torch.Tensor,
     Returns ``e_mbr`` (ceil(C/cand_blk), 8) and ``q_mbr``
     (ceil(Q/qry_blk), 8) float32, each tile's ``(lo_xyz, hi_xyz, 0, 0)``
     over its segments' endpoints (the last tile ragged), and ``d_prune``,
-    a 0-dim float32 tensor equal bit for bit to ``np.float32(prune_limit(
-    float(d), max(solve_scale(entries), solve_scale(queries))))``.  On
+    a 0-dim float32 tensor equal bit for bit to ``np.float32(
+    core.index.dispatch_prune_threshold(d, entries, queries))``.  On
     CUDA two launches in order on the current stream, one count of
     ``LAUNCHES["distthresh_tile_prep"]``, no host read; the float64
     scratch they share is freed on return (the caching allocator reuses it

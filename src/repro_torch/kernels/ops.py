@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import faults
-from repro_torch.core.index import mbr_gap2, prune_limit, solve_scale
+from repro_torch.core.index import dispatch_prune_threshold, mbr_gap2
 from repro_torch.core.trace import span
 from repro_torch.device import resolve_device
 from repro_torch.kernels import distthresh as _dt
@@ -60,7 +60,7 @@ COMPACTIONS = ("fused", "fused_rowloop", "dense")
 #: dispatches only the live tiles through the live-tile kernel; ``"none"``
 #: disables tile-level pruning.  The dense path has no tile loop to skip,
 #: so pruning is a no-op there.  No mode changes the result set (the box
-#: test uses the inflated ``prune_limit``).
+#: test uses the inflated ``dispatch_prune_threshold``).
 PRUNINGS = ("spatial", "hierarchical", "none")
 
 
@@ -163,14 +163,6 @@ def _host_tile_mbrs(packed: np.ndarray, blk: int) -> np.ndarray:
     return out
 
 
-def _host_prune_threshold(d, entries: np.ndarray,
-                          queries: np.ndarray) -> float:
-    """The conservatively inflated tile-prune threshold at dispatch time:
-    ``prune_limit`` evaluated at this dispatch's ``solve_scale``."""
-    return prune_limit(float(d), max(solve_scale(entries),
-                                     solve_scale(queries)))
-
-
 def _slot_bucket(n: int, minimum: int = 64) -> int:
     """Bucketed live-tile-list length: next power of two ≥ ``max(n,
     minimum)``, so list buffers come in O(log) sizes."""
@@ -191,7 +183,7 @@ def _host_live_tiles(entries: np.ndarray, queries: np.ndarray, d,
     """
     e_mbr = _host_tile_mbrs(entries, cand_blk)
     q_mbr = _host_tile_mbrs(queries, qry_blk)
-    d_prune = _host_prune_threshold(d, entries, queries)
+    d_prune = dispatch_prune_threshold(d, entries, queries)
     gap2 = mbr_gap2(e_mbr[:, None, 0:3], e_mbr[:, None, 3:6],
                     q_mbr[None, :, 0:3], q_mbr[None, :, 3:6])
     live = gap2 <= d_prune * d_prune

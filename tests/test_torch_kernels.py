@@ -21,6 +21,8 @@ from conftest import random_segments
 from repro.kernels import distthresh as jdt
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core import index as index_module
+from repro_torch.core.index import dispatch_prune_threshold
 from repro_torch.kernels import distthresh as dt
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
@@ -223,7 +225,7 @@ def _armed(e, q, d, cand_blk: int, qry_blk: int):
     """The early-out's operands from the host helpers: the tile boxes and
     the threshold rounded to float32."""
     return (ops._host_tile_mbrs(e, cand_blk), ops._host_tile_mbrs(q, qry_blk),
-            np.float32(ops._host_prune_threshold(d, e, q)))
+            np.float32(dispatch_prune_threshold(d, e, q)))
 
 
 @pytest.mark.parametrize("append", APPENDS)
@@ -348,14 +350,15 @@ def test_query_block_equals_reference(compaction, pruning):
 def test_spatial_dispatch_builds_no_host_operands(monkeypatch, compaction):
     """The spatial route prepares its tile boxes and threshold from the
     device tensors alone: with the host helpers and ``solve_scale`` made to
-    raise (their names in ``ops``; the planner keeps its own), it still
-    gives the reference's rows and ``pruned_tiles``."""
+    raise (their names in ``ops`` and the index's ``solve_scale``), it
+    still gives the reference's rows and ``pruned_tiles``."""
     e, q, d = _clustered(16)
 
     def no_host_pass(*a, **k):
         raise AssertionError("a host pass over the dispatch's candidates")
-    for name in ("_host_tile_mbrs", "_host_prune_threshold", "solve_scale"):
+    for name in ("_host_tile_mbrs", "dispatch_prune_threshold"):
         monkeypatch.setattr(ops, name, no_host_pass)
+    monkeypatch.setattr(index_module, "solve_scale", no_host_pass)
     kw = dict(capacity=1024, cand_blk=16, qry_blk=16, pruning="spatial")
     got = ops.query_block(e, q, d, device=CPU, compaction=compaction, **kw)
     want = jops.query_block(e, q, d, use_pallas=True, compaction="fused",
@@ -391,9 +394,9 @@ def _prep_case(name: str):
                                   "single_row", "static_rows"])
 def test_tile_prep_plain_equals_host_helpers(name):
     """The plain twin of ``distthresh_tile_prep`` gives the host helpers'
-    boxes and ``np.float32(_host_prune_threshold(...))`` bit for bit, with
-    the queries a column slice of a wider (8, N) array as the engine passes
-    them."""
+    boxes and ``np.float32(dispatch_prune_threshold(...))`` bit for bit,
+    with the queries a column slice of a wider (8, N) array as the engine
+    passes them."""
     e, q, d, cb, qb = _prep_case(name)
     wide = np.concatenate([np.zeros((3, 8), np.float32), q,
                            np.zeros((2, 8), np.float32)])

@@ -38,6 +38,8 @@ import pytest
 import torch
 
 import repro.api as R
+from repro.core.index import TemporalBinIndex as RefIndex
+from repro.data import trajgen as ref_trajgen
 from _hypothesis_compat import given, settings
 from _hypothesis_compat import strategies as st
 from _torch_rows import assert_same_rows, closest_approach
@@ -47,7 +49,8 @@ from repro_torch import state
 from repro_torch.api import ExecutionPolicy, TrajectoryDB
 from repro_torch.core import batching
 from repro_torch.core.engine import DistanceThresholdEngine, brute_force
-from repro_torch.core.index import (MAX_KBOXES, TemporalBinIndex, mbr_gap2,
+from repro_torch.core.index import (MAX_KBOXES, TemporalBinIndex,
+                                    dispatch_prune_threshold, mbr_gap2,
                                     prune_limit, solve_scale)
 from repro_torch.kernels import distthresh as dt
 from repro_torch.kernels import ops, ref
@@ -188,11 +191,11 @@ def test_subranges_never_drop_a_true_hit(seed, d, num_bins):
     queries = _port(random_segments(rng, 12))
     idx = TemporalBinIndex.build(db, num_bins=num_bins)
     qlo, qhi = queries.mbrs()
-    qscale = solve_scale(queries.packed())
+    limit = idx.prune_threshold(float(d), queries.packed())
     for k in range(0, len(queries), 3):
         qt0, qt1 = float(queries.ts[k]), float(queries.te[k])
-        subs = idx.candidate_subranges(qt0, qt1, qlo[k], qhi[k], float(d),
-                                       qscale=qscale)
+        subs = idx.candidate_subranges(qt0, qt1, qlo[k], qhi[k],
+                                       limit=limit)
         for (f1, l1), (f2, l2) in zip(subs, subs[1:]):
             assert l1 < f2                       # disjoint + increasing
         covered = np.zeros(len(db), bool)
@@ -213,11 +216,11 @@ def test_box_subranges_never_drop_a_true_hit(seed, d, kboxes, num_bins):
     queries = _port(random_segments(rng, 12))
     idx = TemporalBinIndex.build(db, num_bins=num_bins, kboxes=kboxes)
     qlo, qhi = queries.mbrs()
-    qscale = solve_scale(queries.packed())
+    limit = idx.prune_threshold(float(d), queries.packed())
     for k in range(0, len(queries), 3):
         qt0, qt1 = float(queries.ts[k]), float(queries.te[k])
-        subs = idx.candidate_subranges(qt0, qt1, qlo[k], qhi[k], float(d),
-                                       level="box", qscale=qscale)
+        subs = idx.candidate_subranges(qt0, qt1, qlo[k], qhi[k],
+                                       limit=limit, level="box")
         for (f1, l1), (f2, l2) in zip(subs, subs[1:]):
             assert l1 < f2
         covered = np.zeros(len(db), bool)
@@ -239,18 +242,44 @@ def test_box_estimate_is_conservative(seed, d, kboxes):
     qlo, qhi = queries.mbrs()
     qt0 = queries.ts.astype(np.float64)
     qt1 = queries.te.astype(np.float64)
-    qscale = solve_scale(queries.packed())
+    limit = idx.prune_threshold(float(d), queries.packed())
     for cap in (None, 4):
         est = idx.estimate_pruned_candidates_batch(
-            qt0, qt1, qlo, qhi, float(d), level="box", max_subranges=cap,
-            qscale=qscale)
+            qt0, qt1, qlo, qhi, limit=limit, level="box", max_subranges=cap)
         temporal = idx.num_candidates_batch(qt0, qt1)
         kw = {} if cap is None else {"max_subranges": cap}
         for k in range(len(queries)):
             exact = idx.pruned_num_candidates(
-                float(qt0[k]), float(qt1[k]), qlo[k], qhi[k], float(d),
-                level="box", qscale=qscale, **kw)
+                float(qt0[k]), float(qt1[k]), qlo[k], qhi[k], limit=limit,
+                level="box", **kw)
             assert exact <= est[k] <= temporal[k], (k, cap)
+
+
+@pytest.mark.parametrize("name,scale", [("S1", 0.01), ("S10", 0.01),
+                                        ("C1", 0.01), ("C3", 0.02)])
+def test_prune_threshold_equals_the_three_term_rule(name, scale):
+    """The index's one threshold per query set equals bit for bit the
+    rule sized per call, ``prune_limit(d, max(database scale, the call's
+    query-MBR coordinates, the queries' solve_scale))``, for every MBR a
+    call can pass (a batch's union takes one query's largest coordinate);
+    a carried reference index, floored by the facade, gives the same."""
+    segs, queries, d = ref_trajgen.make_scenario(name, scale=scale)
+    db, q = _port(segs), _port(queries)
+    index = TemporalBinIndex.build(db, 100, kboxes=8)
+    packed = q.packed()
+    got = index.prune_threshold(d, packed)
+    qlo, qhi = q.mbrs()
+    coords = np.maximum(np.abs(qlo), np.abs(qhi)).max(axis=1)
+    scales = (solve_scale(db.packed()), solve_scale(packed))
+    for c in np.unique(coords):
+        assert got == prune_limit(d, max(scales[0], float(c), scales[1]))
+    carried = state.index_from_numpy(vars(RefIndex.build(segs, 100,
+                                                         kboxes=8)))
+    assert carried.prune_threshold(d, packed) <= got
+    tdb = TrajectoryDB.from_segments(
+        db, device=CPU, index=carried,
+        policy=ExecutionPolicy(num_bins=100, index_kboxes=8))
+    assert tdb.index.prune_threshold(d, packed) == got
 
 
 # ----------------------------------------------------------------------
@@ -480,7 +509,7 @@ NEGATIVE_CASES = [(int(s), float(d)) for s, d in zip(
 
 def test_near_tangent_negative_control(monkeypatch):
     """With the threshold of each route's tile test at d itself (no
-    slack: ``_host_prune_threshold``, which the hierarchical route calls,
+    slack: ``dispatch_prune_threshold``, which the hierarchical route calls,
     and the ``d_prune`` of ``distthresh_tile_prep``, the spatial route's
     seam), the tile test drops float32 hits of near-tangent pairs whose
     box gap exceeds d: property 9 must fail on at least one drawn case,
@@ -490,7 +519,7 @@ def test_near_tangent_negative_control(monkeypatch):
     def prep_no_slack(entries, queries_t, d, **kw):
         e_mbr, q_mbr, _ = prep(entries, queries_t, d, **kw)
         return e_mbr, q_mbr, ref._f32(np.float32(d), entries.device)
-    monkeypatch.setattr(ops, "_host_prune_threshold",
+    monkeypatch.setattr(ops, "dispatch_prune_threshold",
                         lambda d, entries, queries: float(d))
     monkeypatch.setattr(dt, "distthresh_tile_prep", prep_no_slack)
     failed = []
@@ -531,7 +560,7 @@ def test_tile_prep_keeps_the_fast_late_threshold():
     e_mbr, q_mbr, d_prune = dt.distthresh_tile_prep(
         torch.from_numpy(e[None]), torch.from_numpy(q[None]).T.contiguous(),
         d, cand_blk=256, qry_blk=256, device="cpu")
-    want = np.float32(ops._host_prune_threshold(d, e[None], q[None]))
+    want = np.float32(dispatch_prune_threshold(d, e[None], q[None]))
     assert d_prune.numpy().view(np.uint32) == want.view(np.uint32)
     np.testing.assert_array_equal(e_mbr.numpy(),
                                   ops._host_tile_mbrs(e[None], 256))
