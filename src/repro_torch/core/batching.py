@@ -117,6 +117,11 @@ class SpatialInteractionCounter:
     conservative surcharge for that — see the estimate's docstring), so
     the priced count tracks the capped dispatched workload instead of the
     uncapped ideal.
+
+    ``rows_priced`` and ``cells_priced`` total the rows passed to
+    :meth:`counts` and the (row, coarse cell) pairs the estimate
+    evaluated for them: a row is priced only over the cells its temporal
+    range overlaps.
     """
 
     def __init__(self, index: TemporalBinIndex, queries: SegmentArray,
@@ -127,13 +132,24 @@ class SpatialInteractionCounter:
         self.max_subranges = max_subranges
         self.qlo, self.qhi = queries.mbrs()      # (nq, 3) float64
         self.limit = index.prune_threshold(float(d), queries.packed())
+        self.rows_priced = 0
+        self.cells_priced = 0
 
     def counts(self, qt0, qt1, lo, hi) -> np.ndarray:
         """Pruned candidate counts for batches with extents (qt0, qt1) and
         query-MBR unions (lo, hi) — all stacked arrays."""
-        return self.index.estimate_pruned_candidates_batch(
+        est, cells = self.index.price_rows(
             qt0, qt1, lo, hi, limit=self.limit, level=self.level,
             max_subranges=self.max_subranges)
+        self.rows_priced += len(est)
+        self.cells_priced += cells
+        return est
+
+    @property
+    def cells_per_row(self) -> float:
+        """Cells priced per row priced; 0.0 when nothing was priced."""
+        return (self.cells_priced / self.rows_priced if self.rows_priced
+                else 0.0)
 
 
 # ----------------------------------------------------------------------

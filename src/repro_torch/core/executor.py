@@ -132,6 +132,9 @@ class ExecStats:
     num_groups: int = 1
     #: interactions the planner's spatial pruning removed before dispatch.
     pruned_interactions: int = 0
+    #: coarse cells the planner's pricing evaluated per row it priced
+    #: (``QueryPlan.priced_cells_per_row``).
+    priced_cells_per_row: float = 0.0
     #: degradation-ladder steps taken while producing this result
     #: (filled in by the serving broker; empty on a clean execution).
     degradations: list = dataclasses.field(default_factory=list)
@@ -336,7 +339,8 @@ class SyncExecutor(_Executor):
                 ExecStats(plan.plan_seconds, total, stats,
                           num_syncs=num_syncs, pipelined=False,
                           num_groups=max(plan.num_groups, 1),
-                          pruned_interactions=plan.pruned_interactions))
+                          pruned_interactions=plan.pruned_interactions,
+                          priced_cells_per_row=plan.priced_cells_per_row))
 
 
 class PipelinedExecutor(_Executor):
@@ -449,7 +453,8 @@ class PipelinedExecutor(_Executor):
                           dispatch_seconds=timing["dispatch"],
                           sync_seconds=timing["sync"], pipelined=True,
                           num_groups=max(len(groups), 1),
-                          pruned_interactions=plan.pruned_interactions))
+                          pruned_interactions=plan.pruned_interactions,
+                          priced_cells_per_row=plan.priced_cells_per_row))
 
 
 def make_executor(dispatcher: BatchDispatcher, *, pipeline: bool,

@@ -31,7 +31,10 @@ segment never leaves that box) — plus running prefix/suffix MBR unions.
 it is exact, never lossy.  :meth:`estimate_pruned_candidates_batch` is the
 vectorized *pricing* counterpart over a coarsened bin grid — cheap enough
 for the SETSPLIT merge loops, conservative (it never under-counts the
-exact pruned workload).
+exact pruned workload).  It prices each row only over the window of
+coarse cells its temporal range overlaps, so a call costs the summed
+widths of its rows' windows, not rows × grid, and gives the estimate the
+whole grid gives.
 
 **Hierarchical K-box layer.**  One box per bin unions multi-modal
 activity (two swarms far apart in the same epoch) into one fat box that
@@ -60,7 +63,9 @@ DEFAULT_NUM_BINS = 10_000  # paper §7.2: "the number of entry bins ... is set t
 
 #: Coarse pricing-grid resolution: per-bin MBRs are unioned into at most
 #: this many coarse bins for the vectorized pruned-count estimate (the
-#: merge loops evaluate it per adjacent pair per iteration).
+#: merge loops evaluate it per adjacent pair per iteration).  A row is
+#: priced only over the cells its temporal range overlaps, so the grid's
+#: size sets the cost of the rows that span it, not of every row.
 COARSE_GRID_BINS = 128
 
 #: Max sub-ranges :meth:`candidate_subranges` returns per query extent —
@@ -598,7 +603,7 @@ class TemporalBinIndex:
 
         ``qt0``/``qt1`` are (n,) extents, ``qlo``/``qhi`` (n, 3) query-MBR
         stacks.  For each row, the temporal ``[first, last]`` range is
-        intersected with every coarse bin's segment range and coarse bins
+        intersected with the coarse bins' segment ranges and coarse bins
         whose union MBR lies beyond the inflated threshold are dropped.
         ``level="box"`` keeps a cell only when *some* of its K coarse
         boxes survives — a strictly sharper (still conservative) test on
@@ -614,41 +619,98 @@ class TemporalBinIndex:
         heavily fragmented extents instead of silently under-counting
         them.  This is the signal the SETSPLIT/GREEDYSETSPLIT merge loops
         consume.
+
+        **Windows.**  Each row is evaluated only over the coarse cells its
+        range can overlap.  The cells are contiguous segment ranges in
+        index order, so ``_coarse_first`` and ``_coarse_last`` are
+        non-decreasing and a row's cells are one window: from the first
+        cell whose last segment reaches ``first`` to the last cell whose
+        first segment is at most ``last`` (empty for an empty range).
+        The estimate is the one the whole grid gives, element for element:
+        a cell outside the window overlaps the range by nothing, so it adds
+        nothing to the count or to the dropped gaps, and it is never kept,
+        so it opens no fragment; a row's first kept cell opens one whether
+        it starts the window or follows an unkept cell; and empty cells
+        inside the window stay in it.  The gaps are :func:`mbr_gap2` on
+        the same boxes in the same argument order, and every sum is an
+        integer sum.  A row that spans the grid is priced over all of it.
         """
+        return self.price_rows(qt0, qt1, qlo, qhi, limit=limit, level=level,
+                               max_subranges=max_subranges)[0]
+
+    def price_rows(self, qt0, qt1, qlo, qhi, *, limit: float,
+                   level: str = "bin", max_subranges: int | None = None
+                   ) -> tuple[np.ndarray, int]:
+        """:meth:`estimate_pruned_candidates_batch`, and the (row, cell)
+        pairs it evaluated: the summed widths of the rows' windows."""
         qt0 = np.asarray(qt0, np.float64)
         qt1 = np.asarray(qt1, np.float64)
         qlo = np.asarray(qlo, np.float64).reshape(-1, 3)
         qhi = np.asarray(qhi, np.float64).reshape(-1, 3)
         first, last = self.candidate_range_batch(qt0, qt1)
         cf, cl = self._coarse_first, self._coarse_last
-        ov = (np.minimum(last[:, None], cl[None, :])
-              - np.maximum(first[:, None], cf[None, :]) + 1)
-        ov = np.maximum(ov, 0)
+        c_lo = np.searchsorted(cl, first, side="left")
+        width = np.maximum(np.searchsorted(cf, last, side="right") - c_lo, 0)
+        n = len(first)
+        at = np.cumsum(width) - width         # each row's first pair
+        if n and (c_lo == c_lo[0]).all() and (width == width[0]).all():
+            # One window for every row (the whole grid where every row
+            # spans it): its cells by slice, each row broadcast over them.
+            cells = slice(int(c_lo[0]), int(c_lo[0] + width[0]))
+
+            def row(x):
+                return x[:, None]
+
+            def cell(y):
+                return y[None, cells]
+        else:
+            cells = np.arange(width.sum()) - np.repeat(at - c_lo, width)
+
+            def row(x):
+                return np.repeat(x, width, axis=0)
+
+            def cell(y):
+                return np.take(y, cells, axis=0)
+        ov = np.maximum(np.minimum(row(last), cell(cl))
+                        - np.maximum(row(first), cell(cf)) + 1, 0).reshape(-1)
         lim2 = limit * limit
         if level == "box":
-            gap2 = mbr_gap2(self._coarse_klo[None], self._coarse_khi[None],
-                            qlo[:, None, None], qhi[:, None, None])  # (n,k,K)
-            keep = (gap2 <= lim2).any(axis=2)
+            gap2 = mbr_gap2(cell(self._coarse_klo), cell(self._coarse_khi),
+                            row(qlo)[..., None, :], row(qhi)[..., None, :])
+            keep = (gap2 <= lim2).any(axis=-1).reshape(-1)
         else:
-            gap2 = mbr_gap2(self._coarse_lo[None], self._coarse_hi[None],
-                            qlo[:, None], qhi[:, None])     # (n, k)
-            keep = gap2 <= lim2
-        est = (ov * keep).sum(axis=1).astype(np.int64)
+            gap2 = mbr_gap2(cell(self._coarse_lo), cell(self._coarse_hi),
+                            row(qlo), row(qhi))
+            keep = (gap2 <= lim2).reshape(-1)
+        live = width > 0
+        at = at[live]
+
+        def per_row(ufunc, x, empty=0):
+            """``ufunc`` over each row's pairs; ``empty`` where it has none."""
+            out = np.full(n, empty, np.int64)
+            if at.size:
+                out[live] = ufunc.reduceat(x, at, dtype=np.int64)
+            return out
+
+        est = per_row(np.add, ov * keep)
         if max_subranges is not None:
             kk = keep & (ov > 0)
-            ncell = kk.shape[1]
-            frag = kk[:, 0].astype(np.int64) + (kk[:, 1:] & ~kk[:, :-1]).sum(axis=1)
-            any_k = kk.any(axis=1)
-            idx = np.arange(ncell)
-            first_k = np.where(any_k, kk.argmax(axis=1), ncell)
-            last_k = np.where(any_k, ncell - 1 - kk[:, ::-1].argmax(axis=1), -1)
-            internal = (~kk) & (idx[None, :] > first_k[:, None]) \
-                & (idx[None, :] < last_k[:, None])
-            dropped = (ov * internal).sum(axis=1).astype(np.int64)
+            opens = kk.copy()
+            opens[1:] &= ~kk[:-1]
+            opens[at] = kk[at]
+            frag = per_row(np.add, opens)
+            # The gaps dropped between a row's first and last kept cell:
+            # the overlap over that span less what the kept cells count.
+            pos = np.arange(kk.size)
+            first_k = per_row(np.minimum, np.where(kk, pos, kk.size))
+            last_k = per_row(np.maximum, np.where(kk, pos, -1), -1)
+            csum = np.concatenate([[0], np.cumsum(ov)])
+            dropped = np.where(frag > 0,
+                               csum[last_k + 1] - csum[first_k] - est, 0)
             excess = np.maximum(frag - int(max_subranges), 0)
             denom = np.maximum(frag - 1, 1)
             est = est + (dropped * excess + denom - 1) // denom
-        return est
+        return est, int(width.sum())
 
     # ------------------------------------------------------------------
     # pod-local K-box rebuild

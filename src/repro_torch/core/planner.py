@@ -118,6 +118,10 @@ class QueryPlan:
     #: interactions removed by spatial pruning (original temporal workload
     #: minus the planned workload) — surfaced through ``ExecStats``.
     pruned_interactions: int = 0
+    #: coarse cells the pricing evaluated per row it priced
+    #: (``SpatialInteractionCounter``): 0.0 when nothing was priced, at most
+    #: ``COARSE_GRID_BINS`` (every row over the whole grid).
+    priced_cells_per_row: float = 0.0
     #: the planner's spans, name -> (calls, host seconds)
     #: (``repro_torch.core.trace``); empty unless a profiler recorded.
     spans: dict = dataclasses.field(default_factory=dict)
@@ -336,6 +340,8 @@ class QueryPlanner:
                                     pruned_interactions=pruned)
         qplan.plan_seconds = time.perf_counter() - t0
         qplan.spans = spans
+        if counter is not None:
+            qplan.priced_cells_per_row = counter.cells_per_row
         return qplan
 
     def _prune_batches(self, bp: BatchPlan,

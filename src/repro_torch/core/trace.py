@@ -51,6 +51,16 @@ span                          host work
                               where the values would pass int64; its
                               calls count the fallbacks
 ============================  ==============================================
+
+Beside the spans, one counter of the planner's pricing, always on (two
+integer sums a pricing call, no clock read):
+``QueryPlan.priced_cells_per_row``, carried into
+``ExecStats.priced_cells_per_row``, the coarse cells
+``SpatialInteractionCounter`` evaluated per row it priced under
+``plan.batching``.  A row is priced over the cells its temporal range
+overlaps, so it reads ``COARSE_GRID_BINS`` (128) only where every row
+spans the grid, and 0.0 where nothing was priced (periodic batching, or
+no ``d``).
 """
 from __future__ import annotations
 
